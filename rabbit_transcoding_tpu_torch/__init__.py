@@ -1,0 +1,29 @@
+"""rabbit_transcoding_tpu_torch — the PyTorch + CUDA port of the live transcoder.
+
+The JAX package ``rabbit_transcoding_tpu`` is the reference; this package
+runs the same RBV live transcode in PyTorch on an NVIDIA Hopper card, with
+its one device kernel (the fused GOP transcode) written by hand in CUDA C++
+(``csrc/transcode_gops.cu``).  Module names follow the reference so each
+counterpart is easy to find:
+
+  apps/        CLI entry point (``python -m rabbit_transcoding_tpu_torch.apps.transcode``)
+  transcoder/  the RBV slice of the live V3C transcoder
+  video/       RBV codec slice (entropy on the host, transforms on the device)
+  ops/         DCT helpers, the transcode kernel's wrapper and its build
+  csrc/        CUDA sources, compiled with nvcc at first use
+  testdata.py  the benchmark's synthetic V3C stream
+
+Host layers that hold no JAX (bitstream, native rANS, params, hashing) are
+imported from the reference package, never copied.  Nothing here imports
+``jax`` or ``triton``, and no CUDA library is loaded at import time.
+"""
+
+import torch
+
+# fp32 everywhere: TF32 keeps ~10 mantissa bits, far too coarse for 10-bit
+# planes in a closed codec loop (the reference pins Precision.HIGHEST for the
+# same reason).  Set before the package's first CUDA op.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

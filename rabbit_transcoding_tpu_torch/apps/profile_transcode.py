@@ -1,0 +1,177 @@
+"""Where the time of the live transcode goes, at the benchmark cell.
+
+    python -m rabbit_transcoding_tpu_torch.apps.profile_transcode \
+        [--device cuda] [--frames 32] [--size 1024] [--runs 5] [--out FILE]
+
+Three views of the same transcode (the 1024x1024, 32-frame benchmark stream
+to geometry QP 32 / attribute QP 42 in ``reencode`` mode, hash SEI on):
+
+1. wall seconds per GOF over ``--runs`` runs after 2 warm-ups, with the
+   transcoder's ``StageTimer`` stages (median over the runs);
+2. ``torch.profiler`` over one run: the device's busy share of the wall
+   time and its time per kernel and copy (CUDA only);
+3. the lossy planes one at a time, each step synchronised: entropy decode
+   with upload, the fused kernel, the V3C read and write, and the whole
+   entropy encode (``encode_blob_total``: freq-major gather, nonzero count,
+   slab download and the backend race), with its first two parts also
+   timed alone.
+
+Everything printed is also written to ``--out`` when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import struct
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..ops import transcode as tc
+from ..testdata import make_stream
+from ..transcoder import (
+    ColorFormat, Transcoder, TranscoderParameters, V3CReader, V3CWriter,
+    VideoType,
+)
+from ..video import rbv
+
+GEO_QP, ATTR_QP = 32, 42
+
+
+def _card() -> str:
+    if not torch.cuda.is_available():
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    lines: list[str] = []
+
+    def emit(text: str) -> None:
+        print(text, flush=True)
+        lines.append(text)
+
+    card = _card()
+    emit(f"card {card}; torch {torch.__version__}; device {dev}; "
+         f"{args.frames} frames of {args.size}x{args.size}")
+    data = make_stream(args.frames, args.size, args.size, device=dev)
+    params = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                  mode="reencode", computeHashSei=True)
+    reader = V3CReader()
+    units = reader.read(data)[0]
+
+    def run() -> tuple[float, dict[str, float]]:
+        t0 = time.perf_counter()
+        context = reader.decode(list(units))
+        transcoder = Transcoder(params, dev)
+        transcoder.transcode(context)
+        writer = V3CWriter()
+        writer.write(writer.encode(context))
+        _sync(dev)
+        return time.perf_counter() - t0, transcoder.timer.stages
+
+    # 1. wall per GOF and the transcoder's stages
+    for _ in range(2):
+        run()
+    walls, stages = [], []
+    for _ in range(args.runs):
+        wall, st = run()
+        walls.append(wall)
+        stages.append(st)
+    median = statistics.median(walls)
+    emit(f"walls_s {walls!r} median_s {median!r} "
+         f"frames_per_s {args.frames / median!r}")
+    emit("stage_ms_median " + json.dumps(
+        {k: statistics.median(s[k] for s in stages) for k in stages[0]}))
+
+    # 2. the device's share of one run
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _ = run()
+        events = prof.key_averages()
+        busy_us = sum(e.self_device_time_total for e in events)
+        emit(f"profiled_wall_s {wall!r} device_busy_us {busy_us!r} "
+             f"busy_share {busy_us * 1e-6 / wall!r}")
+        emit(events.table(sort_by="self_device_time_total", row_limit=15,
+                          max_name_column_width=60))
+    else:
+        emit("device busy share: not measured (CPU run)")
+
+    # 3. the lossy planes one step at a time
+    steps = dict.fromkeys(("v3c_read", "decode_blob", "kernel",
+                           "freq_major_nnz", "slab_download",
+                           "encode_blob_total", "v3c_write"), 0.0)
+
+    def timed(name, fn, *a):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*a)
+        _sync(dev)
+        steps[name] += time.perf_counter() - t0
+        return out
+
+    context = timed("v3c_read", lambda: reader.decode(list(units)))
+    atlas = context.atlas(0)
+    for vt, qp in ((VideoType.GEOMETRY, GEO_QP), (VideoType.ATTRIBUTE,
+                                                   ATTR_QP)):
+        payload = atlas.get_video_bitstream(vt).data
+        _, w, h, bitdepth, chroma, f, b, gop, qp_in = rbv._parse_header(
+            payload)
+        dims = rbv._plane_dims(w, h, ColorFormat(chroma))
+        for (ph, pw), blob in zip(dims, rbv._iter_blobs(payload, len(dims))):
+            q = timed("decode_blob", rbv._decode_coeff_blob, blob, f,
+                      -(-ph // b), -(-pw // b), b, dev)
+            q2 = timed("kernel", tc.transcode_coeffs, q,
+                       rbv._f32(rbv.qstep_of(qp_in)),
+                       rbv._f32(rbv.qstep_of(qp)),
+                       float((1 << bitdepth) - 1), gop, params.videoGopSize)
+
+            def freq_major():
+                qf = rbv._to_freq_major(q2)
+                return qf, rbv._freq_nnz(qf).cpu().numpy()
+
+            qf, nnz = timed("freq_major_nnz", freq_major)
+            nz = np.nonzero(nnz)[0]
+            kmax = rbv._bucket_kmax(int(nz.max()) + 1, b * b) if len(nz) else 0
+            timed("slab_download", lambda: qf[:, :kmax].contiguous().cpu())
+            out = timed("encode_blob_total", rbv._encode_coeff_blob, q2)
+            (kmax_in,) = struct.unpack_from("<H", blob, 1)
+            (kmax_out,) = struct.unpack_from("<H", out, 1)
+            emit(f"plane {vt.name} {pw}x{ph}: kmax in {kmax_in} "
+                 f"({blob[3:4].decode()}), out {kmax_out} "
+                 f"({out[3:4].decode()})")
+    writer = V3CWriter()
+    timed("v3c_write", lambda: writer.write(writer.encode(context)))
+    emit("serial_steps_s " + json.dumps(steps))
+
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), which is loaded with ``ctypes``.  The library lives in
+``build/torch_kernels/`` at the root of the checkout and is rebuilt when a
+source is newer than it.  A failed build or load raises; there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+LIBRARY = BUILD_DIR / "librbv_torch_kernels.so"
+BUILD_LOG = BUILD_DIR / "build.log"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
+                       "or set CUDA_HOME")
+
+
+def _stale() -> bool:
+    if not LIBRARY.exists():
+        return True
+    built = LIBRARY.stat().st_mtime
+    return any(s.stat().st_mtime > built for s in sources())
+
+
+def build(force: bool = False) -> float:
+    """Compile the kernels if needed -> seconds spent (0.0 when current).
+    nvcc's output, with ptxas's register and shared-memory report, is kept
+    in ``BUILD_LOG``."""
+    if not force and not _stale():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, LIBRARY)
+    return seconds
+
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed.  Thread-safe: the
+    transcoder calls kernels from one worker thread per plane."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            _lib = _load()
+        return _lib
+
+
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(LIBRARY))
+    lib.rbv_transcode_gops.restype = ctypes.c_int
+    lib.rbv_transcode_gops.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # in, out, dmat
+        ctypes.c_int, ctypes.c_int,                          # frames, n_blocks
+        ctypes.c_int, ctypes.c_int,                          # gop_in, gop_out
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,      # qs_in, qs_out, maxval
+        ctypes.c_float, ctypes.c_float,                      # dz_intra, dz_inter
+        ctypes.c_int, ctypes.c_void_p,                       # device, stream
+    ]
+    lib.rbv_cuda_error_string.restype = ctypes.c_char_p
+    lib.rbv_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib

@@ -1,0 +1,438 @@
+"""RBV, the repo's block-DCT video codec: the slice the live transcode runs.
+
+Port of ``rabbit_transcoding_tpu/video/rbv.py`` for streams without motion
+compensation, intra prediction, deblocking or a coefficient threshold, plus
+lossless planes.  The payload format is the reference's (container v2, blob
+mode 3): both packages read each other's streams, and on the CPU they write
+the same bytes.
+
+* Host: entropy coding of the zigzag frequency slab through the shared
+  ``native`` rANS library (the ``R``/``B``/``Z`` size race) and zlib.
+* Device (``device`` argument): the slab layout ops, the transforms and the
+  I/P chains as torch ops, and the fused decode -> re-encode
+  (``ops.transcode.transcode_coeffs``), which on a CUDA tensor is the
+  hand-written Hopper kernel.
+
+Payload flags or options outside the slice raise ``NotImplementedError``
+naming the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+import functools
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from rabbit_transcoding_tpu import native
+from rabbit_transcoding_tpu.core.image import Video
+from rabbit_transcoding_tpu.utils.enums import ColorFormat
+
+from ..ops.dct import blockify, deblockify, pad_to_block
+from ..ops.transcode import decode_chain, encode_chain, transcode_coeffs
+
+_MAGIC = b"RBV2"
+_HEADER = struct.Struct("<4sBBHHBBHBBBB")
+
+# payload flag bits
+_LOSSLESS, _MC, _DEBLOCK, _INTRA = 1, 2, 4, 8
+_NOT_PORTED = "is not ported yet (ROADMAP, queue 1 item 4)"
+
+def qstep_of(qp: int) -> float:
+    """HEVC-style quantiser step: doubles every 6 QP."""
+    return float(2.0 ** ((qp - 4.0) / 6.0))
+
+
+def _f32(x: float) -> float:
+    """A Python float holding the float32 value the device computes with."""
+    return float(np.float32(x))
+
+
+def _check_flags(flags: int) -> None:
+    for bit, what in ((_MC, "motion compensation (flag bit 1)"),
+                      (_DEBLOCK, "in-loop deblocking (flag bit 2)"),
+                      (_INTRA, "intra prediction (flag bit 3)")):
+        if flags & bit and not flags & _LOSSLESS:
+            raise NotImplementedError(f"RBV {what} {_NOT_PORTED}")
+
+
+# ===========================================================================
+# Frequency-slab layout (device) and host entropy coding
+# ===========================================================================
+@functools.lru_cache(maxsize=None)
+def _zz(n: int) -> np.ndarray:
+    """Zigzag scan order of an n x n block (flat indices); shared, do not
+    write to it."""
+    idx = sorted(
+        ((i, j) for i in range(n) for j in range(n)),
+        key=lambda p: (p[0] + p[1], p[0] if (p[0] + p[1]) % 2 else -p[0]),
+    )
+    return np.array([i * n + j for i, j in idx], np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _zz_inv(n: int) -> np.ndarray:
+    order = _zz(n)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    return inv
+
+
+def _to_freq_major(q: torch.Tensor) -> torch.Tensor:
+    """(F, nby, nbx, B, B) -> (F, B*B zigzag-ordered, nby, nbx)."""
+    f, nby, nbx, b, _ = q.shape
+    zz = torch.from_numpy(_zz(b)).to(q.device)
+    return q.reshape(f, nby, nbx, b * b)[..., zz].permute(0, 3, 1, 2)
+
+
+def _freq_nnz(qf: torch.Tensor) -> torch.Tensor:
+    """Nonzero count per zigzag frequency of a freq-major tensor."""
+    return torch.count_nonzero(qf, dim=(0, 2, 3))
+
+
+def _from_freq_slab(slab: torch.Tensor, b: int, kmax: int) -> torch.Tensor:
+    """(F, kmax, nby, nbx) -> dense (F, nby, nbx, B, B)."""
+    f, _, nby, nbx = slab.shape
+    full = torch.zeros((f, b * b, nby, nbx), dtype=slab.dtype,
+                       device=slab.device)
+    full[:, :kmax] = slab
+    inv = torch.from_numpy(_zz_inv(b)).to(slab.device)
+    return full.permute(0, 2, 3, 1)[..., inv].reshape(f, nby, nbx, b, b)
+
+
+_KMAX_BUCKETS = (4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+def _bucket_kmax(k: int, b2: int) -> int:
+    for v in _KMAX_BUCKETS:
+        if v >= k and v <= b2:
+            return v
+    return b2
+
+
+# frequency-band context boundaries (zigzag octaves): each band gets its own
+# rANS tables in the 'B' backend
+_BAND_STARTS = (0, 1, 4, 16, 64)
+
+
+def _band_plan(kmax: int) -> list[int]:
+    """Band start frequencies for a slab of kmax rows."""
+    return [s for s in _BAND_STARTS if s < kmax]
+
+
+def _band_segments(f: int, kmax: int, s_blocks: int, starts: list[int]):
+    """Ordered (offset, length, band) covering the (F, kmax, S) slab."""
+    bounds = list(starts) + [kmax]
+    segs = []
+    for fi in range(f):
+        base = fi * kmax * s_blocks
+        for bi in range(len(starts)):
+            k0, k1 = bounds[bi], bounds[bi + 1]
+            segs.append((base + k0 * s_blocks, (k1 - k0) * s_blocks, bi))
+    return segs
+
+
+def _encode_coeff_blob(q: torch.Tensor, level: int = 6) -> bytes:
+    """Device coefficient tensor (F, nby, nbx, B, B) -> mode-3 entropy blob:
+    only zigzag frequencies [0, kmax) leave the device.  The smallest of the
+    candidate backends wins; decode reads the tag."""
+    f, nby, nbx, b, _ = q.shape
+    b2 = b * b
+    qf = _to_freq_major(q)
+    nz = np.nonzero(_freq_nnz(qf).cpu().numpy())[0]
+    if len(nz) == 0:
+        return b"\x03" + struct.pack("<H", 0)
+    kmax = _bucket_kmax(int(nz.max()) + 1, b2)
+    # a fresh tensor (the gather in _to_freq_major copies), safe to edit
+    slab = qf[:, :kmax].contiguous().cpu().numpy()
+    # DC DPCM across the block raster within each frame
+    dc = slab[:, 0].reshape(f, nby * nbx).astype(np.int32)
+    slab[:, 0] = np.diff(dc, axis=1, prepend=0).astype(np.int16).reshape(
+        f, nby, nbx)
+    head = b"\x03" + struct.pack("<H", kmax)
+    if not native.available():
+        return head + b"Z" + zlib.compress(slab.tobytes(), level)
+    candidates: list[bytes] = []
+    starts = _band_plan(kmax)
+    # 'B': per-frequency-band rANS contexts; its extra tables lose on small
+    # slabs, so it races only above 64 KiB
+    if len(starts) > 1 and slab.nbytes > 64 << 10:
+        segs = _band_segments(f, kmax, nby * nbx, starts)
+        rb = native.compress_i16_bands(slab, segs, len(starts))
+        bandhdr = bytes([len(starts)]) + b"".join(
+            struct.pack("<H", s) for s in starts
+        )
+        candidates.append(head + b"B" + bandhdr + rb)
+    candidates.append(head + b"R" + native.compress_i16(slab))
+    # zlib races only for slabs up to 1 MiB (rANS wins above)
+    if slab.nbytes <= 1 << 20:
+        candidates.append(head + b"Z" + zlib.compress(slab.tobytes(), level))
+    return min(candidates, key=len)
+
+
+def _decode_coeff_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
+                       device) -> torch.Tensor:
+    """Mode-3 entropy blob -> int16 coefficients (F, nby, nbx, B, B) on
+    ``device``.  Modes 0-2 predate the frequency slab and no encoder of
+    either package writes them."""
+    mode = blob[0]
+    if mode != 3:
+        raise ValueError(f"RBV coefficient blob mode {mode} is not supported "
+                         f"(only mode 3 is written)")
+    (kmax,) = struct.unpack_from("<H", blob, 1)
+    if kmax == 0:
+        return torch.zeros((f, nby, nbx, b, b), dtype=torch.int16,
+                           device=device)
+    backend = blob[3:4]
+    n_el = f * kmax * nby * nbx
+    if backend == b"B":
+        n_bands = blob[4]
+        starts = [struct.unpack_from("<H", blob, 5 + 2 * i)[0]
+                  for i in range(n_bands)]
+        segs = _band_segments(f, kmax, nby * nbx, starts)
+        slab = native.decompress_i16_bands(
+            blob[5 + 2 * n_bands:], n_el, segs, n_bands)
+    elif backend == b"R":
+        slab = native.decompress_i16(blob[4:], n_el)
+    else:
+        slab = np.frombuffer(zlib.decompress(blob[4:]), np.int16).copy()
+    slab = slab.reshape(f, kmax, nby, nbx)
+    dcd = slab[:, 0].reshape(f, nby * nbx).astype(np.int32)
+    slab[:, 0] = np.cumsum(dcd, axis=1).reshape(f, nby, nbx).astype(np.int16)
+    return _from_freq_slab(torch.from_numpy(slab).to(device), b, kmax)
+
+
+# ===========================================================================
+# Codec API
+# ===========================================================================
+@dataclasses.dataclass
+class RbvParams:
+    """The reference's ``RbvParams`` without the MC search weights; the
+    port encodes lossless planes and lossy planes without motion, intra,
+    deblocking or threshold (``encode`` raises when one is set)."""
+
+    qp: int = 32
+    block_size: int = 16
+    gop_size: int = 2
+    lossless: bool = False
+    zlib_level: int = 6
+    motion: bool = False
+    deblock: bool = False
+    coeff_threshold: int = 0
+    intra: bool = False
+
+
+def _plane_dims(width: int, height: int,
+                fmt: ColorFormat) -> list[tuple[int, int]]:
+    if fmt == ColorFormat.YUV400:
+        return [(height, width)]
+    if fmt == ColorFormat.YUV420:
+        return [(height, width), (height // 2, width // 2),
+                (height // 2, width // 2)]
+    return [(height, width)] * 3
+
+
+def _to_device(p: np.ndarray, device) -> torch.Tensor:
+    # integer samples are exact in float32; cast on the host because torch
+    # has no uint16 arithmetic
+    return torch.from_numpy(p.astype(np.float32)).to(device)
+
+
+def encode(video: Video, params: RbvParams,
+           device=torch.device("cpu")) -> tuple[bytes, Video]:
+    """Encode a Video -> (payload bytes, closed-loop reconstruction)."""
+    f = video.frame_count
+    if not params.lossless:
+        if params.motion and params.gop_size > 1:
+            raise NotImplementedError(f"RBV motion compensation {_NOT_PORTED}")
+        if params.deblock:
+            raise NotImplementedError(f"RBV in-loop deblocking {_NOT_PORTED}")
+        if params.intra:
+            raise NotImplementedError(f"RBV intra prediction {_NOT_PORTED}")
+        if params.coeff_threshold:
+            raise NotImplementedError(
+                f"RBV coefficient threshold {_NOT_PORTED}")
+    header = _HEADER.pack(
+        _MAGIC, 2, _LOSSLESS if params.lossless else 0, video.width,
+        video.height, video.bitdepth, int(video.format), f,
+        params.block_size, params.gop_size, params.qp, 0,
+    )
+    blobs: list[bytes] = []
+    recon_planes: list[np.ndarray] = []
+    maxval = float((1 << video.bitdepth) - 1)
+
+    if params.lossless:
+        # serialise in the dtype the header's bitdepth implies
+        ldt = np.uint8 if video.bitdepth <= 8 else np.uint16
+        for p in video.planes:
+            p = np.ascontiguousarray(p.astype(ldt))
+            # binary planes (occupancy) bit-pack 8:1 before DEFLATE
+            if p.dtype == np.uint8 and p.max(initial=0) <= 1:
+                packed = np.packbits(p.reshape(-1))
+                blobs.append(
+                    b"P" + zlib.compress(packed.tobytes(), params.zlib_level))
+            else:
+                blobs.append(
+                    b"Z" + zlib.compress(p.tobytes(), params.zlib_level))
+            recon_planes.append(p.copy())
+    else:
+        b = params.block_size
+        qstep = _f32(qstep_of(params.qp))
+        for p in video.planes:
+            orig_h, orig_w = p.shape[-2:]
+            padded = pad_to_block(p, b)
+            x = blockify(_to_device(padded, device), b)
+            q, rec = encode_chain(x, qstep, maxval, params.gop_size)
+            blobs.append(_encode_coeff_blob(q, params.zlib_level))
+            rec = deblockify(rec).to(torch.int32).cpu().numpy()
+            recon_planes.append(rec[:, :orig_h, :orig_w].astype(p.dtype))
+
+    out = bytearray(header)
+    for blob in blobs:
+        out.extend(struct.pack("<I", len(blob)))
+        out.extend(blob)
+    recon = Video(video.width, video.height, video.bitdepth, video.format,
+                  recon_planes)
+    return bytes(out), recon
+
+
+def _parse_header(payload: bytes):
+    magic, ver, flags, width, height, bitdepth, chroma, f, block, gop, qp, _ = (
+        _HEADER.unpack_from(payload, 0)
+    )
+    if magic != _MAGIC:
+        raise ValueError("not an RBV bitstream")
+    if ver != 2:
+        raise ValueError(f"unsupported RBV version {ver}")
+    return flags, width, height, bitdepth, chroma, f, block, gop, qp
+
+
+def _iter_blobs(payload: bytes, n_planes: int):
+    pos = _HEADER.size
+    for _ in range(n_planes):
+        (blob_len,) = struct.unpack_from("<I", payload, pos)
+        pos += 4
+        yield payload[pos : pos + blob_len]
+        pos += blob_len
+
+
+def decode(payload: bytes, device=torch.device("cpu")) -> Video:
+    """Decode an RBV payload -> Video."""
+    flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
+        payload
+    )
+    _check_flags(flags)
+    fmt = ColorFormat(chroma)
+    dims = _plane_dims(width, height, fmt)
+    dtype = np.uint8 if bitdepth <= 8 else np.uint16
+    maxval = float((1 << bitdepth) - 1)
+    planes: list[np.ndarray] = []
+    for (h, w), blob in zip(dims, _iter_blobs(payload, len(dims))):
+        if flags & _LOSSLESS:
+            raw = zlib.decompress(blob[1:])
+            if blob[:1] == b"P":
+                bits = np.unpackbits(np.frombuffer(raw, np.uint8),
+                                     count=f * h * w)
+                planes.append(bits.astype(dtype).reshape(f, h, w))
+            else:
+                planes.append(np.frombuffer(raw, dtype=dtype).reshape(f, h, w))
+            continue
+        ph = h + ((-h) % block)
+        pw = w + ((-w) % block)
+        q = _decode_coeff_blob(blob, f, ph // block, pw // block, block,
+                               device)
+        rec = deblockify(decode_chain(q, _f32(qstep_of(qp)), maxval, gop))
+        planes.append(rec.to(torch.int32).cpu().numpy()[:, :h, :w]
+                      .astype(dtype))
+    return Video(width, height, bitdepth, fmt, planes)
+
+
+def _reencode_lossless(payload: bytes, new_qp: int, new_gop: int | None,
+                       zlib_level: int, device=torch.device("cpu")) -> bytes:
+    """Lossless input has no coefficient domain: transcoding it to a lossy
+    rate point is a first quantisation (full decode -> encode)."""
+    _, _, _, _, _, _, block, gop, _ = _parse_header(payload)
+    video = decode(payload, device)
+    out, _ = encode(video, RbvParams(
+        qp=new_qp, block_size=block, gop_size=max(1, new_gop or gop),
+        zlib_level=zlib_level,
+    ), device)
+    return out
+
+
+def requantize(payload: bytes, new_qp: int, zlib_level: int = 6) -> bytes:
+    """DCT-domain requantisation (the reference's ``requant`` mode)."""
+    raise NotImplementedError(f"RBV requantize {_NOT_PORTED}")
+
+
+def transcode_payload(
+    payload: bytes,
+    new_qp: int,
+    new_gop: int | None = None,
+    zlib_level: int = 6,
+    coeff_threshold: int = 0,
+    device=torch.device("cpu"),
+) -> bytes:
+    """Drift-free transcode: entropy decode on the host, the fused
+    decode -> re-encode on ``device`` (pixels never leave it), entropy
+    encode on the host."""
+    flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
+        payload
+    )
+    if flags & _LOSSLESS:
+        return _reencode_lossless(payload, new_qp, new_gop, zlib_level,
+                                  device)
+    _check_flags(flags)
+    if coeff_threshold:
+        raise NotImplementedError(f"RBV coefficient threshold {_NOT_PORTED}")
+    gop_out = new_gop or gop
+    header = _HEADER.pack(
+        _MAGIC, 2, flags, width, height, bitdepth, chroma, f, block, gop_out,
+        new_qp, 0,
+    )
+    dims = _plane_dims(width, height, ColorFormat(chroma))
+    qs_in = _f32(qstep_of(qp))
+    qs_out = _f32(qstep_of(new_qp))
+    maxval = float((1 << bitdepth) - 1)
+
+    def one_plane(args) -> bytes:
+        (h, w), blob = args
+        nby = (h + ((-h) % block)) // block
+        nbx = (w + ((-w) % block)) // block
+        q = _decode_coeff_blob(blob, f, nby, nbx, block, device)
+        # the reference pads the frames to whole GOPs first; both chains are
+        # causal, so the first f output frames do not depend on the padding
+        q2 = transcode_coeffs(q, qs_in, qs_out, maxval, gop, gop_out)
+        return _encode_coeff_blob(q2, zlib_level)
+
+    # one thread per plane: host entropy (rANS, inflate/deflate release the
+    # interpreter lock) overlaps across planes while the device queue runs
+    # the kernels in order; ex.map keeps the plane order
+    with cf.ThreadPoolExecutor(max_workers=max(1, len(dims))) as ex:
+        blobs = list(ex.map(one_plane, zip(dims, _iter_blobs(payload,
+                                                             len(dims)))))
+    out = bytearray(header)
+    for blob in blobs:
+        out.extend(struct.pack("<I", len(blob)))
+        out.extend(blob)
+    return bytes(out)
+
+
+def probe(payload: bytes) -> dict:
+    """Read stream parameters without decoding."""
+    flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
+        payload
+    )
+    return {
+        "width": width, "height": height, "bitdepth": bitdepth,
+        "format": ColorFormat(chroma), "frame_count": f,
+        "block_size": block, "gop_size": gop, "qp": qp,
+        "lossless": bool(flags & 1),
+        "motion": bool(flags & 2),
+        "deblock": bool(flags & 4),
+        "intra": bool(flags & 8),
+    }
