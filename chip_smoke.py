@@ -15,7 +15,17 @@ Phases, one result line each; any failure raises and the exit code is not 0:
    transcoded to geometry QP 32 / attribute QP 42 in ``reencode`` mode by
    ``Transcoder(device=cuda)``: one warm-up and 3 timed runs, 4 kernel
    launches per run, every output sub-stream decodes, and the coefficients
-   match a ``device=cpu`` run of the same transcode.
+   match a ``device=cpu`` run of the same transcode;
+5. MC + intra stream: the same content coded as the repo's encoder codes it
+   by default (motion-compensated P frames with the occupancy-weighted
+   search, mosaic intra I frames, GOP 2), built on the card;
+6. MC + intra ``reencode``: that stream through ``Transcoder(device=cuda)``
+   at the same QPs, one warm-up and 3 timed runs, with 0 launches of the
+   kernel (the branch runs the plain chains on the card), every output
+   sub-stream decoding, and the output held against a ``device=cpu`` run;
+7. ``requant`` mode on both streams (the bench stream requantises drift-
+   compensated, the MC + intra stream open-loop), timed and held against
+   ``device=cpu`` runs in the same way.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports only the port, which imports
@@ -49,6 +59,9 @@ from rabbit_transcoding_tpu_torch.video import rbv
 # boundary moves a coefficient by 1)
 MAX_SHARE = 1e-4
 MAX_DIFF = 1
+# the same bounds for the GPU-against-CPU check of the MC + intra and
+# requant paths (coefficients and intra mode-map entries); their motion
+# vectors pass through or come from the stream and must be equal
 FRAMES, WIDTH, HEIGHT = 32, 1024, 1024
 GEO_QP, ATTR_QP = 32, 42
 KERNEL_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_gops.cu"
@@ -95,20 +108,74 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def stream_coeffs(data: bytes, device) -> dict:
-    """{(video type, plane): int16 coefficients} of the lossy RBV planes."""
+def stream_planes(data: bytes, device) -> dict:
+    """{(video type, plane): the plane's sections} of the lossy RBV planes:
+    int16 coefficients, intra mode maps and motion vectors (None when the
+    stream has none)."""
     reader = V3CReader()
     atlas = reader.decode(reader.read(data)[0]).atlas(0)
     out = {}
     for vt in (VideoType.GEOMETRY, VideoType.ATTRIBUTE):
         payload = atlas.get_video_bitstream(vt).data
-        flags, w, h, _, chroma, f, b, _, _ = rbv._parse_header(payload)
+        flags, w, h, _, chroma, f, b, gop, _ = rbv._parse_header(payload)
         dims = rbv._plane_dims(w, h, ColorFormat(chroma))
         for k, ((ph, pw), blob) in enumerate(
                 zip(dims, rbv._iter_blobs(payload, len(dims)))):
-            out[(vt.name, k)] = rbv._decode_coeff_blob(
-                blob, f, -(-ph // b), -(-pw // b), b, device)
+            out[(vt.name, k)] = rbv._Plane(blob, flags, f, ph, pw, b, gop,
+                                           device)
     return out
+
+
+def stream_coeffs(data: bytes, device) -> dict:
+    """{(video type, plane): int16 coefficients} of the lossy RBV planes."""
+    return {k: p.q for k, p in stream_planes(data, device).items()}
+
+
+def gpu_vs_cpu(name: str, got: bytes, want: bytes, dev, **fields) -> None:
+    """Hold the card's output stream against the CPU's: equal bytes, or
+    else every coefficient and mode-map entry within MAX_SHARE / MAX_DIFF
+    and equal motion vectors."""
+    a, b = stream_planes(got, dev), stream_planes(want, dev)
+    worst_q, worst_mode, mv_equal = (0.0, 0), (0.0, 0), True
+    for key in b:
+        worst_q = max(worst_q, compare(a[key].q, b[key].q))
+        if b[key].mode is not None:
+            worst_mode = max(worst_mode, compare(
+                torch.from_numpy(a[key].mode), torch.from_numpy(b[key].mode)))
+        if b[key].mv is not None:
+            mv_equal &= bool(np.array_equal(a[key].mv, b[key].mv))
+    phase(name, bytes_equal=got == want, coeff_share=worst_q[0],
+          coeff_max_abs_diff=worst_q[1], mode_share=worst_mode[0],
+          mode_max_abs_diff=worst_mode[1], mv_equal=mv_equal, **fields)
+    check(worst_q[0] <= MAX_SHARE and worst_q[1] <= MAX_DIFF,
+          f"{name}: GPU vs CPU coefficients {worst_q}")
+    check(worst_mode[0] <= MAX_SHARE and worst_mode[1] <= MAX_DIFF,
+          f"{name}: GPU vs CPU mode maps {worst_mode}")
+    check(mv_equal, f"{name}: GPU vs CPU motion vectors differ")
+
+
+def check_decodes(out: bytes, dev) -> None:
+    """Every output sub-stream decodes with the port at the stream's size."""
+    reader_out = V3CReader()
+    atlas = reader_out.decode(reader_out.read(out)[0]).atlas(0)
+    for vt in (VideoType.OCCUPANCY, VideoType.GEOMETRY, VideoType.ATTRIBUTE):
+        video = rbv.decode(atlas.get_video_bitstream(vt).data, dev)
+        want_w = WIDTH // 2 if vt == VideoType.OCCUPANCY else WIDTH
+        check(video.frame_count == FRAMES and video.width == want_w
+              and all(p.shape[0] == FRAMES for p in video.planes),
+              f"{vt.name}: decoded {video.frame_count} frames of "
+              f"{video.width}x{video.height}")
+
+
+def timed_runs(run, n: int = 3) -> tuple[bytes, list[float]]:
+    """One warm-up, then ``n`` timed runs: (last output, wall seconds)."""
+    walls = []
+    for i in range(n + 1):
+        t0 = time.perf_counter()
+        out = run()
+        if i:
+            walls.append(time.perf_counter() - t0)
+    return out, walls
 
 
 def main() -> int:
@@ -184,9 +251,9 @@ def main() -> int:
     reader = V3CReader()
     units = reader.read(data)[0]
 
-    def run(device) -> bytes:
-        context = reader.decode(list(units))
-        Transcoder(params, device).transcode(context)
+    def run(device, stream_units=units, mode_params=params) -> bytes:
+        context = reader.decode(list(stream_units))
+        Transcoder(mode_params, device).transcode(context)
         writer = V3CWriter()
         out = writer.write(writer.encode(context))
         if device.type == "cuda":
@@ -210,15 +277,7 @@ def main() -> int:
           median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
           launches=launches, out_bytes=len(out), card=repr(card))
 
-    reader_out = V3CReader()
-    atlas = reader_out.decode(reader_out.read(out)[0]).atlas(0)
-    for vt in (VideoType.OCCUPANCY, VideoType.GEOMETRY, VideoType.ATTRIBUTE):
-        video = rbv.decode(atlas.get_video_bitstream(vt).data, dev)
-        want_w = WIDTH // 2 if vt == VideoType.OCCUPANCY else WIDTH
-        check(video.frame_count == FRAMES and video.width == want_w
-              and all(p.shape[0] == FRAMES for p in video.planes),
-              f"{vt.name}: decoded {video.frame_count} frames of "
-              f"{video.width}x{video.height}")
+    check_decodes(out, dev)
     t0 = time.perf_counter()
     out_cpu = run(torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
@@ -230,6 +289,38 @@ def main() -> int:
           bytes_equal=out == out_cpu, cpu_wall_s=f"{cpu_s:.3f}")
     check(worst[0] <= MAX_SHARE and worst[1] <= MAX_DIFF,
           f"GPU vs CPU output coefficients: {worst}")
+
+    # 5. the MC + intra stream, built on the card
+    t0 = time.perf_counter()
+    data_mi = make_stream(FRAMES, WIDTH, HEIGHT, device=dev, motion=True,
+                          intra=True)
+    phase("mc_intra_stream", frames=FRAMES, size=f"{WIDTH}x{HEIGHT}",
+          bytes=len(data_mi), seconds=f"{time.perf_counter() - t0:.3f}")
+    units_mi = reader.read(data_mi)[0]
+    cpu = torch.device("cpu")
+    requant = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                   mode="requant")
+
+    # 6. MC + intra reencode on the card: the plain chains, no kernel
+    # 7. requant mode on the bench stream and on the MC + intra stream
+    for name, stream_units, mode_params in (
+            ("mc_intra_reencode", units_mi, params),
+            ("bench_requant", units, requant),
+            ("mc_intra_requant", units_mi, requant)):
+        tc.LAUNCHES = 0
+        out, walls = timed_runs(lambda: run(dev, stream_units, mode_params))
+        runs_launches = tc.LAUNCHES
+        wall = statistics.median(walls)
+        phase(name, runs=len(walls), wall_s=repr(walls),
+              median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
+              launches=runs_launches, out_bytes=len(out), card=repr(card))
+        check(runs_launches == 0,
+              f"{name}: {runs_launches} kernel launches, want 0")
+        check_decodes(out, dev)
+        t0 = time.perf_counter()
+        out_cpu = run(cpu, stream_units, mode_params)
+        gpu_vs_cpu(f"{name}_vs_cpu", out, out_cpu, dev,
+                   cpu_wall_s=f"{time.perf_counter() - t0:.3f}")
 
     k_ms, p_ms = times["luma"]
     print(json.dumps({"kernels": [{

@@ -1,20 +1,25 @@
 """Where the time of the live transcode goes, at the benchmark cell.
 
     python -m rabbit_transcoding_tpu_torch.apps.profile_transcode \
-        [--device cuda] [--frames 32] [--size 1024] [--runs 5] [--out FILE]
+        [--device cuda] [--frames 32] [--size 1024] [--runs 5] \
+        [--tools plain|mc_intra] [--out FILE]
 
 Three views of the same transcode (the 1024x1024, 32-frame benchmark stream
-to geometry QP 32 / attribute QP 42 in ``reencode`` mode, hash SEI on):
+to geometry QP 32 / attribute QP 42 in ``reencode`` mode, hash SEI on).
+``--tools=mc_intra`` codes the stream's lossy planes as the repo's encoder
+does by default (motion compensation with the occupancy-weighted search,
+mosaic intra I frames), so the transcode runs the plain MC and intra chains
+on the device instead of the fused kernel:
 
 1. wall seconds per GOF over ``--runs`` runs after 2 warm-ups, with the
    transcoder's ``StageTimer`` stages (median over the runs);
 2. ``torch.profiler`` over one run: the device's busy share of the wall
    time and its time per kernel and copy (CUDA only);
 3. the lossy planes one at a time, each step synchronised: entropy decode
-   with upload, the fused kernel, the V3C read and write, and the whole
-   entropy encode (``encode_blob_total``: freq-major gather, nonzero count,
-   slab download and the backend race), with its first two parts also
-   timed alone.
+   with upload, the device transcode (the fused kernel, or the MC / intra
+   chains), the V3C read and write, and the whole entropy encode
+   (``encode_blob_total``: freq-major gather, nonzero count, slab download
+   and the backend race), with its first two parts also timed alone.
 
 Everything printed is also written to ``--out`` when given.
 """
@@ -31,7 +36,6 @@ import time
 import numpy as np
 import torch
 
-from ..ops import transcode as tc
 from ..testdata import make_stream
 from ..transcoder import (
     ColorFormat, Transcoder, TranscoderParameters, V3CReader, V3CWriter,
@@ -62,6 +66,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--tools", choices=("plain", "mc_intra"),
+                    default="plain")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
@@ -73,8 +79,11 @@ def main(argv: list[str] | None = None) -> int:
 
     card = _card()
     emit(f"card {card}; torch {torch.__version__}; device {dev}; "
-         f"{args.frames} frames of {args.size}x{args.size}")
-    data = make_stream(args.frames, args.size, args.size, device=dev)
+         f"{args.frames} frames of {args.size}x{args.size}; "
+         f"tools {args.tools}")
+    mc_intra = args.tools == "mc_intra"
+    data = make_stream(args.frames, args.size, args.size, device=dev,
+                       motion=mc_intra, intra=mc_intra)
     params = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
                                   mode="reencode", computeHashSei=True)
     reader = V3CReader()
@@ -121,7 +130,7 @@ def main(argv: list[str] | None = None) -> int:
         emit("device busy share: not measured (CPU run)")
 
     # 3. the lossy planes one step at a time
-    steps = dict.fromkeys(("v3c_read", "decode_blob", "kernel",
+    steps = dict.fromkeys(("v3c_read", "decode_blob", "device_transcode",
                            "freq_major_nnz", "slab_download",
                            "encode_blob_total", "v3c_write"), 0.0)
 
@@ -138,16 +147,18 @@ def main(argv: list[str] | None = None) -> int:
     for vt, qp in ((VideoType.GEOMETRY, GEO_QP), (VideoType.ATTRIBUTE,
                                                    ATTR_QP)):
         payload = atlas.get_video_bitstream(vt).data
-        _, w, h, bitdepth, chroma, f, b, gop, qp_in = rbv._parse_header(
+        flags, w, h, bitdepth, chroma, f, b, gop, qp_in = rbv._parse_header(
             payload)
         dims = rbv._plane_dims(w, h, ColorFormat(chroma))
         for (ph, pw), blob in zip(dims, rbv._iter_blobs(payload, len(dims))):
-            q = timed("decode_blob", rbv._decode_coeff_blob, blob, f,
-                      -(-ph // b), -(-pw // b), b, dev)
-            q2 = timed("kernel", tc.transcode_coeffs, q,
-                       rbv._f32(rbv.qstep_of(qp_in)),
-                       rbv._f32(rbv.qstep_of(qp)),
-                       float((1 << bitdepth) - 1), gop, params.videoGopSize)
+            pl = timed("decode_blob", rbv._Plane, blob, flags, f, ph, pw, b,
+                       gop, dev)
+            q2, _ = timed("device_transcode", rbv._transcode_plane, pl,
+                          rbv._f32(rbv.qstep_of(qp_in)),
+                          rbv._f32(rbv.qstep_of(qp)),
+                          float((1 << bitdepth) - 1), gop,
+                          gop if pl.mv is not None else params.videoGopSize,
+                          bool(flags & 4), bool(flags & 8), 0)
 
             def freq_major():
                 qf = rbv._to_freq_major(q2)
@@ -158,10 +169,10 @@ def main(argv: list[str] | None = None) -> int:
             kmax = rbv._bucket_kmax(int(nz.max()) + 1, b * b) if len(nz) else 0
             timed("slab_download", lambda: qf[:, :kmax].contiguous().cpu())
             out = timed("encode_blob_total", rbv._encode_coeff_blob, q2)
-            (kmax_in,) = struct.unpack_from("<H", blob, 1)
+            (kmax_in,) = struct.unpack_from("<H", pl.coeff_blob, 1)
             (kmax_out,) = struct.unpack_from("<H", out, 1)
             emit(f"plane {vt.name} {pw}x{ph}: kmax in {kmax_in} "
-                 f"({blob[3:4].decode()}), out {kmax_out} "
+                 f"({pl.coeff_blob[3:4].decode()}), out {kmax_out} "
                  f"({out[3:4].decode()})")
     writer = V3CWriter()
     timed("v3c_write", lambda: writer.write(writer.encode(context)))

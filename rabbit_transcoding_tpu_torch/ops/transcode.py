@@ -1,52 +1,42 @@
-"""Fused RBV GOP transcode: dequantise -> IDCT -> I/P chain -> DCT -> requantise.
+"""RBV I/P chains and the fused GOP transcode: dequantise -> IDCT -> I/P
+chain -> DCT -> requantise.
 
 Port of the TPU kernel ``rabbit_transcoding_tpu/ops/pallas_transcode.py``
-(``transcode_gops_pallas`` / ``transcode_coeffs_pallas``) and of the XLA path
-it shadows, ``rbv._transcode_impl_fused`` with ``_decode_impl`` and
-``_encode_impl`` in their non-intra, no-deblock, no-threshold form.
+(``transcode_gops_pallas`` / ``transcode_coeffs_pallas``) and of the XLA
+programs of ``rabbit_transcoding_tpu/video/rbv.py`` around it:
+``_encode_impl`` / ``_decode_impl`` with their intra, deblocking and
+threshold options, the motion-compensated ``_encode_impl_mc_core``,
+``_decode_impl_mc`` and ``_reencode_with_mv``, and the fused transcodes.
 
 * ``decode_chain`` / ``encode_chain``: the plain PyTorch chains, batched over
-  GOPs like the reference's ``vmap`` (the codec's encode and decode use them).
+  GOPs like the reference's ``vmap``, with the tools of ``rbv_tools``.
 * ``transcode_coeffs_ref``: the plain version of the fused transcode.
-* ``transcode_coeffs``: the wrapper.  A CUDA tensor launches the hand-written
-  Hopper kernel (``csrc/transcode_gops.cu``); a CPU tensor takes the plain
-  version.  ``LAUNCHES`` counts kernel launches.
+* ``transcode_coeffs``: the wrapper of the branch without MC, intra,
+  deblocking or threshold.  A CUDA tensor launches the hand-written Hopper
+  kernel (``csrc/transcode_gops.cu``); a CPU tensor takes the plain version.
+  ``LAUNCHES`` counts kernel launches.
 
-Layout in and out: frame-major int16 ``(F, nby, nbx, B, B)``.  Numerics:
-fp32, round half to even, a true division ``|c| / qstep``.
+Layout in and out: frame-major ``(F, nby, nbx, B, B)`` (int16 coefficients,
+float32 pixel blocks).  Numerics: fp32, round half to even, a true division
+``|c| / qstep``.
 """
 
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
-from .dct import dct2d, dct_tensor, idct2d
-
-# deadzone quantisation offsets: round-half for intra, a wider deadzone for
-# inter residuals (rbv._DZ_INTRA / _DZ_INTER)
-DZ_INTRA = 0.5
-DZ_INTER = 1.0 / 3.0
+from . import rbv_tools as tools
+from .dct import blockify, dct2d, dct_tensor, deblockify, idct2d
+from .rbv_tools import DZ_INTER, DZ_INTRA, quantize, scalar
 
 # kernel launches made by transcode_coeffs (read and reset by callers that
 # must show the main path went through the kernel)
 LAUNCHES = 0
 _launch_lock = threading.Lock()
-
-
-def _scalar(x: float, device) -> torch.Tensor:
-    # a 0-d tensor ON the device: a CPU scalar divisor would let CUDA's
-    # true-divide multiply by its reciprocal instead
-    return torch.tensor(x, dtype=torch.float32, device=device)
-
-
-def _quantize(c: torch.Tensor, qstep: torch.Tensor, dz: torch.Tensor):
-    """sign(c) * floor(|c| / qstep + dz), clipped to +/-32767 (float)."""
-    return torch.clamp(
-        torch.sign(c) * torch.floor(torch.abs(c) / qstep + dz), -32767, 32767
-    )
 
 
 def _pad_frames(x: torch.Tensor, gop: int) -> torch.Tensor:
@@ -57,65 +47,153 @@ def _pad_frames(x: torch.Tensor, gop: int) -> torch.Tensor:
     return x
 
 
+def _by_gop(x: torch.Tensor | None, gop: int):
+    """(F, ...) -> (n_gops, gop, ...), the last frame repeated to fill."""
+    if x is None:
+        return None
+    x = _pad_frames(x, gop)
+    return x.reshape(-1, gop, *x.shape[1:])
+
+
+def _finish(pix: torch.Tensor, qstep: float, maxval: float,
+            deblock: bool) -> torch.Tensor:
+    """Pixel blocks -> the closed-loop recon: rounded, clipped, and with
+    deblocking filtered across the block boundaries of each frame."""
+    rec = tools.reconstruct(pix, maxval)
+    if deblock:
+        b = rec.shape[-1]
+        rec = blockify(tools.deblock(deblockify(rec), qstep, maxval, b), b)
+    return rec
+
+
+def _vmapped(gop: int, motion: bool) -> bool:
+    """Whether the reference runs the chain under its per-GOP ``vmap``: all
+    but the plain and intra programs at GOP 1 do (the intra numerics follow
+    the program, ``rbv_tools.intra_code_frame``)."""
+    return gop > 1 or motion
+
+
+def _predict(prev: torch.Tensor, mv: torch.Tensor | None) -> torch.Tensor:
+    """The P-frame prediction in block layout: the previous recon, moved by
+    the per-block motion vectors when there are any."""
+    if mv is None:
+        return prev
+    b = prev.shape[-1]
+    return blockify(tools.mc_predict(deblockify(prev), mv, b), b)
+
+
 def decode_chain(coeffs: torch.Tensor, qstep: float, maxval: float,
-                 gop: int) -> torch.Tensor:
+                 gop: int, deblock: bool = False,
+                 imode: torch.Tensor | None = None,
+                 mv: torch.Tensor | None = None) -> torch.Tensor:
     """int coeffs (F, nby, nbx, B, B) -> pixel blocks float32, same shape:
-    each GOP's I frame decodes alone, each P frame adds to the previous
-    recon; recon = clip(round(.), 0, maxval)."""
+    each GOP's I frame decodes alone (with ``imode`` (n_gops, nby, nbx)
+    through the intra mosaic), each P frame adds to the previous recon,
+    moved by ``mv`` (F, nby, nbx) when given; recon = clip(round(.), 0,
+    maxval), then deblocked when ``deblock``."""
     f = coeffs.shape[0]
-    dev = coeffs.device
-    qs = _scalar(qstep, dev)
-    g = _pad_frames(coeffs, gop).to(torch.float32)
-    g = g.reshape(-1, gop, *g.shape[1:])
+    b = coeffs.shape[-1]
+    qs = scalar(qstep, coeffs.device)
+    g = _by_gop(coeffs, gop).to(torch.float32)
+    gmv = _by_gop(mv, gop)
     recs = []
     prev = None
     for k in range(gop):
-        res = idct2d(g[:, k] * qs)
-        pix = res if prev is None else prev + res
-        prev = torch.clamp(torch.round(pix), 0.0, maxval)
+        if k == 0 and imode is not None:
+            rec = tools.intra_rebuild(g[:, 0], imode, qstep, maxval, b,
+                                      deblock, _vmapped(gop, mv is not None))
+            prev = blockify(rec, b)
+        else:
+            res = idct2d(g[:, k] * qs)
+            if k:
+                res = _predict(prev, None if gmv is None else gmv[:, k]) + res
+            prev = _finish(res, qstep, maxval, deblock)
         recs.append(prev)
     return torch.stack(recs, 1).reshape(-1, *g.shape[2:])[:f]
 
 
 def encode_chain(blocks: torch.Tensor, qstep: float, maxval: float,
-                 gop: int, recon: bool = True):
-    """Pixel blocks (F, nby, nbx, B, B) -> (coeffs int16, recon float32 or
-    None).  I frames code the pixels, P frames the residual against the
-    previous closed-loop recon.  With recon=False only the recons that a
-    later P frame predicts from are computed."""
+                 gop: int, recon: bool = True, deblock: bool = False,
+                 thr_k: int = 0, intra: bool = False,
+                 mv: torch.Tensor | None = None, search: bool = False,
+                 weights: torch.Tensor | None = None) -> dict:
+    """Pixel blocks (F, nby, nbx, B, B) -> {"q": int16 coefficients, "rec":
+    float32 recon blocks or None, "mode": uint8 (n_gops, nby, nbx) intra
+    mode maps or None, "mv": int32 (F, nby, nbx) motion vectors or None}.
+
+    I frames code the pixels (``intra``: through the mosaic predictors), P
+    frames the residual against the previous closed-loop recon: as it is,
+    moved by the given ``mv``, or moved by a block motion search
+    (``search``; ``weights`` (F, H, W) mask its distortion per pixel).  With
+    recon=False only the recons that a later P frame predicts from are
+    computed."""
     f = blocks.shape[0]
+    b = blocks.shape[-1]
     dev = blocks.device
-    qs = _scalar(qstep, dev)
-    dz_intra, dz_inter = _scalar(DZ_INTRA, dev), _scalar(DZ_INTER, dev)
-    g = _pad_frames(blocks.to(torch.float32), gop)
-    g = g.reshape(-1, gop, *g.shape[1:])
-    qs_out, recs = [], []
+    qs = scalar(qstep, dev)
+    dz_intra, dz_inter = scalar(DZ_INTRA, dev), scalar(DZ_INTER, dev)
+    lam = float(np.float32(qstep) * np.float32(tools.MC_LAMBDA_SCALE))
+    g = _by_gop(blocks.to(torch.float32), gop)
+    gmv = _by_gop(mv, gop)
+    gw = _by_gop(None if weights is None else weights.to(torch.float32), gop)
+    q_out, recs, mvs = [], [], []
+    mode = None
     prev = None
     for k in range(gop):
         frame = g[:, k]
-        res = frame if prev is None else frame - prev
-        q = _quantize(dct2d(res), qs, dz_intra if prev is None else dz_inter)
-        qs_out.append(q.to(torch.int16))
+        if search and k == 0:
+            mvs.append(torch.zeros(frame.shape[:-2], dtype=torch.int32,
+                                   device=dev))
+        if k == 0 and intra:
+            q, mode, rec = tools.intra_code_frame(
+                deblockify(frame), qstep, maxval, b, deblock, thr_k,
+                _vmapped(gop, search or mv is not None))
+            q_out.append(q)
+            prev = blockify(rec, b)
+            recs.append(prev)
+            continue
+        pred, dz = None, dz_intra
+        if k and search:
+            mv_k, pred = tools.mc_search(
+                deblockify(frame), deblockify(prev), b, lam,
+                None if gw is None else gw[:, k])
+            mvs.append(mv_k)
+            pred, dz = blockify(pred, b), dz_inter
+        elif k:
+            pred = _predict(prev, None if gmv is None else gmv[:, k])
+            dz = dz_inter
+        res = frame if pred is None else frame - pred
+        q = quantize(dct2d(res), qs, dz)
+        if thr_k:
+            q = tools.threshold_coeffs(q, b, thr_k)
+        q_out.append(q.to(torch.int16))
         if recon or k + 1 < gop:
             r = idct2d(q * qs)
-            pix = r if prev is None else prev + r
-            prev = torch.clamp(torch.round(pix), 0.0, maxval)
+            prev = _finish(r if pred is None else pred + r, qstep, maxval,
+                           deblock)
             recs.append(prev)
-    q = torch.stack(qs_out, 1).reshape(-1, *g.shape[2:])[:f]
-    if not recon:
-        return q, None
-    return q, torch.stack(recs, 1).reshape(-1, *g.shape[2:])[:f]
+    shape = (-1,) + tuple(g.shape[2:])
+    return {
+        "q": torch.stack(q_out, 1).reshape(shape)[:f],
+        "rec": torch.stack(recs, 1).reshape(shape)[:f] if recon else None,
+        "mode": mode,
+        "mv": (torch.stack(mvs, 1).reshape(-1, *g.shape[2:4])[:f]
+               if search else None),
+    }
 
 
 def transcode_coeffs_ref(coeffs: torch.Tensor, qs_in: float, qs_out: float,
-                         maxval: float, gop_in: int,
-                         gop_out: int) -> torch.Tensor:
+                         maxval: float, gop_in: int, gop_out: int,
+                         deblock: bool = False,
+                         thr_k: int = 0) -> torch.Tensor:
     """Plain PyTorch fused transcode: int16 (F, nby, nbx, B, B) coefficients
     of a stream at (qs_in, gop_in) -> int16 coefficients of the same shape
-    at (qs_out, gop_out).  Both chains are causal, so a ragged last GOP
+    at (qs_out, gop_out), deblocking in both loops and thresholding the
+    re-encode when asked.  Both chains are causal, so a ragged last GOP
     gives the frames the reference computes after padding."""
-    pixels = decode_chain(coeffs, qs_in, maxval, gop_in)
-    return encode_chain(pixels, qs_out, maxval, gop_out, recon=False)[0]
+    pixels = decode_chain(coeffs, qs_in, maxval, gop_in, deblock)
+    return encode_chain(pixels, qs_out, maxval, gop_out, recon=False,
+                        deblock=deblock, thr_k=thr_k)["q"]
 
 
 def transcode_coeffs(coeffs: torch.Tensor, qs_in: float, qs_out: float,

@@ -9,8 +9,15 @@ background-filled encoder output looks like to the transcoder):
 * attribute: 8-bit YUV420, lossy RBV at QP 22, GOP 2.
 
 On the CPU its bytes equal the reference's ``bench.make_stream``.  With
-``device=cuda`` the lossy encodes run on the GPU, so the full-size stream
-can be built where JAX is not installed.
+``motion`` and ``intra`` on, the lossy planes are coded as the repo's V-PCC
+encoder codes them by default (``encoder/params.py``: ``motionEstimation``,
+``usePccRDO``, ``geometryIntraPrediction`` and ``attributeIntraPrediction``
+on; intra is used at GOP <= 4): motion-compensated P frames whose search is
+weighted by the full-resolution occupancy map (``encoder/encoder.py``
+weights the geometry with the decoded occupancy and the attribute luma with
+the occupied pixels), and mosaic intra I frames.  With ``device=cuda`` the
+lossy encodes run on the GPU, so the full-size stream can be built where JAX
+is not installed.
 """
 
 from __future__ import annotations
@@ -31,16 +38,15 @@ from rabbit_transcoding_tpu.utils.enums import CodecId, ColorFormat, VideoType
 from .video import VideoEncoder, VideoEncoderParams
 
 
-def make_stream(frames: int, width: int = 1024, height: int = 1024,
-                device=torch.device("cpu")) -> bytes:
-    """One GOF of ``frames`` frames at ``width`` x ``height`` -> V3C bytes.
-    Deterministic (seed 0)."""
+def content(frames: int, width: int, height: int):
+    """The stream's planes, deterministic (seed 0): the occupancy map at full
+    resolution (uint8 0/1), geometry (uint16, 10-bit) and attribute luma
+    (uint8)."""
     from scipy.ndimage import zoom
 
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:height, 0:width]
     # occupancy: smooth-noise blobs at 16px granularity, ~30% fill
-    occ_precision = 2
     blobs = rng.normal(size=(frames, height // 64, width // 64))
     occ = np.stack(
         [zoom(blobs[f], 64, order=1) > 0.5 for f in range(frames)]
@@ -53,27 +59,45 @@ def make_stream(frames: int, width: int = 1024, height: int = 1024,
         geo[f] = g.astype(np.uint16)
         a = 128 + 80 * np.sin((xx + 5 * f) / 23.0) + 30 * np.cos(yy / 17.0)
         attr_y[f] = np.clip(a, 0, 255).astype(np.uint8)
+    return occ, geo, attr_y
 
-    occ_small = occ.reshape(
-        frames, height // occ_precision, occ_precision,
-        width // occ_precision, occ_precision,
-    ).max(axis=(2, 4))
 
+OCC_PRECISION = 2
+
+
+def lossy_params(motion: bool, intra: bool, occ: np.ndarray) -> dict:
+    """{"geometry" | "attribute": VideoEncoderParams keywords} of the lossy
+    planes."""
+    tools = dict(motion=motion, intra=intra,
+                 mc_weight=occ if motion else None)
+    return {"geometry": dict(qp=16, gop_size=2, **tools),
+            "attribute": dict(qp=22, gop_size=2, **tools)}
+
+
+def make_stream(frames: int, width: int = 1024, height: int = 1024,
+                device=torch.device("cpu"), motion: bool = False,
+                intra: bool = False) -> bytes:
+    """One GOF of ``frames`` frames at ``width`` x ``height`` -> V3C bytes.
+    Deterministic (seed 0)."""
+    occ, geo, attr_y = content(frames, width, height)
+    p = OCC_PRECISION
+    occ_small = occ.reshape(frames, height // p, p, width // p, p).max(
+        axis=(2, 4))
+    params = lossy_params(motion, intra, occ)
     enc = VideoEncoder.create(CodecId.RBV, device)
     enc_ll = VideoEncoder.create(CodecId.RBV_LOSSLESS, device)
     occ_payload, _ = enc_ll.encode(
-        Video(width // occ_precision, height // occ_precision, 8,
-              ColorFormat.YUV400, [occ_small]),
+        Video(width // p, height // p, 8, ColorFormat.YUV400, [occ_small]),
         VideoEncoderParams(lossless=True),
     )
     geo_payload, _ = enc.encode(
         Video(width, height, 10, ColorFormat.YUV400, [geo]),
-        VideoEncoderParams(qp=16, gop_size=2),
+        VideoEncoderParams(**params["geometry"]),
     )
     u = np.full((frames, height // 2, width // 2), 128, np.uint8)
     attr_payload, _ = enc.encode(
         Video(width, height, 8, ColorFormat.YUV420, [attr_y, u, u.copy()]),
-        VideoEncoderParams(qp=22, gop_size=2),
+        VideoEncoderParams(**params["attribute"]),
     )
 
     context = Context()

@@ -1,12 +1,14 @@
-"""The RABBIT live V3C transcoder: the RBV ``reencode`` slice.
+"""The RABBIT live V3C transcoder: the RBV ``reencode`` and ``requant``
+modes.
 
 Port of ``rabbit_transcoding_tpu/transcoder/transcoder.py``.  Take a decoded
-Context (HLS + video sub-bitstreams), re-encode each RBV video component at
-new rate points without re-running segmentation or packing, optionally
-downscale the occupancy map, refresh the hash SEI, and leave all other atlas
-metadata intact for remux.  The fused decode -> re-encode of each lossy
-plane runs on ``device``: the hand-written Hopper kernel on a CUDA device,
-the plain PyTorch version on the CPU.
+Context (HLS + video sub-bitstreams), re-encode (or requantise in the DCT
+domain) each RBV video component at new rate points without re-running
+segmentation or packing, optionally downscale the occupancy map, refresh the
+hash SEI, and leave all other atlas metadata intact for remux.  Each lossy
+plane transcodes on ``device``: a stream without MC, intra, deblocking or
+threshold through the hand-written Hopper kernel on a CUDA device, every
+other one through the plain PyTorch chains on the same device.
 
 Parameters are the reference's ``TranscoderParameters``, unchanged.  What
 the slice does not cover raises ``NotImplementedError`` naming the ROADMAP
@@ -188,7 +190,7 @@ class Transcoder:
             return rbv._reencode_lossless(vb.data, qp, None, 6, self.device)
         if (p.effective_mode(qp, motion=info["motion"]) == "requant"
                 and not p.transcodeBaseline):
-            raise _not_ported("requant mode (DCT-domain requantisation)", 4)
+            return rbv.requantize(vb.data, qp, device=self.device)
         # fused decode -> re-encode on the device
         return rbv.transcode_payload(
             vb.data, qp,

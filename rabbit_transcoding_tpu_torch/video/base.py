@@ -20,16 +20,20 @@ from . import rbv
 @dataclasses.dataclass
 class VideoEncoderParams:
     """Uniform encoder knobs: the reference's, without those of the
-    external codecs and the MC search weights."""
+    external codecs."""
 
     qp: int = 32
     gop_size: int = 2
     all_intra: bool = False
     lossless: bool = False
     block_size: int = 16
-    # not ported yet: rbv.encode raises when one takes effect
-    motion: bool = False
+    motion: bool = False   # motion-compensated P frames
+    # occupancy-aware RDO: optional (F, H, W) weights masking the MC
+    # distortion so that only patch content drives the motion choice
+    mc_weight: object = None
+    # zero the quantised +/-1 at zigzag rank >= this (0 = off)
     coeff_threshold: int = 0
+    # mosaic intra prediction (DC/planar) on I frames
     intra: bool = False
 
 
@@ -80,6 +84,7 @@ class RbvVideoEncoder(VideoEncoder):
             gop_size=1 if params.all_intra else params.gop_size,
             lossless=params.lossless or self.force_lossless,
             motion=params.motion and not params.all_intra,
+            mc_weight=params.mc_weight,
             coeff_threshold=params.coeff_threshold,
             intra=params.intra,
         )

@@ -1,20 +1,20 @@
-"""RBV, the repo's block-DCT video codec: the slice the live transcode runs.
+"""RBV, the repo's block-DCT video codec.
 
-Port of ``rabbit_transcoding_tpu/video/rbv.py`` for streams without motion
-compensation, intra prediction, deblocking or a coefficient threshold, plus
-lossless planes.  The payload format is the reference's (container v2, blob
-mode 3): both packages read each other's streams, and on the CPU they write
-the same bytes.
+Port of ``rabbit_transcoding_tpu/video/rbv.py``: every payload flag
+(lossless, motion compensation, in-loop deblocking, intra prediction), the
+encoder's coefficient threshold and MC search weights, ``encode``,
+``decode``, ``requantize`` and every branch of ``transcode_payload``.  The
+payload format is the reference's (container v2, blob mode 3): both packages
+read each other's streams, and on the CPU they write the same bytes.
 
 * Host: entropy coding of the zigzag frequency slab through the shared
-  ``native`` rANS library (the ``R``/``B``/``Z`` size race) and zlib.
-* Device (``device`` argument): the slab layout ops, the transforms and the
-  I/P chains as torch ops, and the fused decode -> re-encode
-  (``ops.transcode.transcode_coeffs``), which on a CUDA tensor is the
-  hand-written Hopper kernel.
-
-Payload flags or options outside the slice raise ``NotImplementedError``
-naming the ROADMAP item that will port them.
+  ``native`` rANS library (the ``R``/``B``/``Z`` size race) and zlib, and
+  the motion-vector ('M') and intra mode-map ('I') side sections.
+* Device (``device`` argument): the slab layout ops and the chains of
+  ``ops.transcode`` as torch ops.  The fused decode -> re-encode of a stream
+  without MC, intra, deblocking or threshold is ``ops.transcode.
+  transcode_coeffs``, on a CUDA tensor the hand-written Hopper kernel; every
+  other branch runs the plain chains on the same device.
 """
 
 from __future__ import annotations
@@ -32,15 +32,21 @@ from rabbit_transcoding_tpu import native
 from rabbit_transcoding_tpu.core.image import Video
 from rabbit_transcoding_tpu.utils.enums import ColorFormat
 
+from ..ops import rbv_tools as tools
 from ..ops.dct import blockify, deblockify, pad_to_block
-from ..ops.transcode import decode_chain, encode_chain, transcode_coeffs
+from ..ops.transcode import (
+    decode_chain,
+    encode_chain,
+    transcode_coeffs,
+    transcode_coeffs_ref,
+)
 
 _MAGIC = b"RBV2"
 _HEADER = struct.Struct("<4sBBHHBBHBBBB")
 
 # payload flag bits
 _LOSSLESS, _MC, _DEBLOCK, _INTRA = 1, 2, 4, 8
-_NOT_PORTED = "is not ported yet (ROADMAP, queue 1 item 4)"
+
 
 def qstep_of(qp: int) -> float:
     """HEVC-style quantiser step: doubles every 6 QP."""
@@ -52,31 +58,12 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _check_flags(flags: int) -> None:
-    for bit, what in ((_MC, "motion compensation (flag bit 1)"),
-                      (_DEBLOCK, "in-loop deblocking (flag bit 2)"),
-                      (_INTRA, "intra prediction (flag bit 3)")):
-        if flags & bit and not flags & _LOSSLESS:
-            raise NotImplementedError(f"RBV {what} {_NOT_PORTED}")
-
-
 # ===========================================================================
 # Frequency-slab layout (device) and host entropy coding
 # ===========================================================================
 @functools.lru_cache(maxsize=None)
-def _zz(n: int) -> np.ndarray:
-    """Zigzag scan order of an n x n block (flat indices); shared, do not
-    write to it."""
-    idx = sorted(
-        ((i, j) for i in range(n) for j in range(n)),
-        key=lambda p: (p[0] + p[1], p[0] if (p[0] + p[1]) % 2 else -p[0]),
-    )
-    return np.array([i * n + j for i, j in idx], np.int64)
-
-
-@functools.lru_cache(maxsize=None)
 def _zz_inv(n: int) -> np.ndarray:
-    order = _zz(n)
+    order = tools.zigzag(n)
     inv = np.empty_like(order)
     inv[order] = np.arange(len(order))
     return inv
@@ -85,7 +72,7 @@ def _zz_inv(n: int) -> np.ndarray:
 def _to_freq_major(q: torch.Tensor) -> torch.Tensor:
     """(F, nby, nbx, B, B) -> (F, B*B zigzag-ordered, nby, nbx)."""
     f, nby, nbx, b, _ = q.shape
-    zz = torch.from_numpy(_zz(b)).to(q.device)
+    zz = torch.from_numpy(tools.zigzag(b)).to(q.device)
     return q.reshape(f, nby, nbx, b * b)[..., zz].permute(0, 3, 1, 2)
 
 
@@ -206,23 +193,68 @@ def _decode_coeff_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
     return _from_freq_slab(torch.from_numpy(slab).to(device), b, kmax)
 
 
+def _encode_mv_section(mv: np.ndarray, level: int) -> bytes:
+    """Motion vectors (F, nby, nbx) -> 'M' section: uint8 candidate indices,
+    zlib."""
+    z = zlib.compress(mv.astype(np.uint8).tobytes(), level)
+    return b"M" + struct.pack("<I", len(z)) + z
+
+
+def _split_mv_section(blob: bytes, f: int, nby: int, nbx: int):
+    """-> (mv (F, nby, nbx) int32 or None, coefficient blob)."""
+    if blob[:1] != b"M":
+        return None, blob
+    (zlen,) = struct.unpack_from("<I", blob, 1)
+    mv = np.frombuffer(
+        zlib.decompress(blob[5:5 + zlen]), np.uint8
+    ).reshape(f, nby, nbx).astype(np.int32)
+    return mv, blob[5 + zlen:]
+
+
+def _encode_intra_section(mode: np.ndarray, level: int) -> bytes:
+    """Intra mode maps (n_i, nby, nbx) -> 'I' section: one bit per block
+    (1 = planar), packbits + zlib.  The mosaic rides in the coefficients' DC
+    slots."""
+    mz = zlib.compress(np.packbits(mode.reshape(-1)).tobytes(), level)
+    return b"I" + struct.pack("<I", len(mz)) + mz
+
+
+def _split_intra_section(blob: bytes, n_i: int, nby: int, nbx: int):
+    """-> (mode (n_i, nby, nbx) uint8, rest, raw section bytes) or
+    (None, blob, b'')."""
+    if blob[:1] != b"I":
+        return None, blob, b""
+    (mlen,) = struct.unpack_from("<I", blob, 1)
+    off = 5 + mlen
+    mode = np.unpackbits(
+        np.frombuffer(zlib.decompress(blob[5:off]), np.uint8),
+        count=n_i * nby * nbx,
+    ).reshape(n_i, nby, nbx)
+    return mode, blob[off:], blob[:off]
+
+
 # ===========================================================================
 # Codec API
 # ===========================================================================
 @dataclasses.dataclass
 class RbvParams:
-    """The reference's ``RbvParams`` without the MC search weights; the
-    port encodes lossless planes and lossy planes without motion, intra,
-    deblocking or threshold (``encode`` raises when one is set)."""
+    """The reference's ``RbvParams``."""
 
     qp: int = 32
     block_size: int = 16
     gop_size: int = 2
     lossless: bool = False
     zlib_level: int = 6
+    # motion-compensated P frames (block search on the device, flag bit 1)
     motion: bool = False
+    # optional (F, H, W) weights masking the MC search's distortion
+    # (occupancy-aware RDO); encoder-side only, sent as uint8
+    mc_weight: object = None
+    # in-loop deblocking (flag bit 2)
     deblock: bool = False
+    # zero the quantised +/-1 at zigzag rank >= this (0 = off); encoder-side
     coeff_threshold: int = 0
+    # mosaic intra prediction on I frames (flag bit 3)
     intra: bool = False
 
 
@@ -242,24 +274,23 @@ def _to_device(p: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(p.astype(np.float32)).to(device)
 
 
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
 def encode(video: Video, params: RbvParams,
            device=torch.device("cpu")) -> tuple[bytes, Video]:
     """Encode a Video -> (payload bytes, closed-loop reconstruction)."""
     f = video.frame_count
-    if not params.lossless:
-        if params.motion and params.gop_size > 1:
-            raise NotImplementedError(f"RBV motion compensation {_NOT_PORTED}")
-        if params.deblock:
-            raise NotImplementedError(f"RBV in-loop deblocking {_NOT_PORTED}")
-        if params.intra:
-            raise NotImplementedError(f"RBV intra prediction {_NOT_PORTED}")
-        if params.coeff_threshold:
-            raise NotImplementedError(
-                f"RBV coefficient threshold {_NOT_PORTED}")
+    use_mc = params.motion and not params.lossless and params.gop_size > 1
+    use_db = params.deblock and not params.lossless
+    use_intra = params.intra and not params.lossless
+    flags = ((_LOSSLESS if params.lossless else 0) | (_MC if use_mc else 0)
+             | (_DEBLOCK if use_db else 0) | (_INTRA if use_intra else 0))
     header = _HEADER.pack(
-        _MAGIC, 2, _LOSSLESS if params.lossless else 0, video.width,
-        video.height, video.bitdepth, int(video.format), f,
-        params.block_size, params.gop_size, params.qp, 0,
+        _MAGIC, 2, flags, video.width, video.height, video.bitdepth,
+        int(video.format), f, params.block_size, params.gop_size, params.qp,
+        0,
     )
     blobs: list[bytes] = []
     recon_planes: list[np.ndarray] = []
@@ -284,11 +315,28 @@ def encode(video: Video, params: RbvParams,
         qstep = _f32(qstep_of(params.qp))
         for p in video.planes:
             orig_h, orig_w = p.shape[-2:]
-            padded = pad_to_block(p, b)
-            x = blockify(_to_device(padded, device), b)
-            q, rec = encode_chain(x, qstep, maxval, params.gop_size)
-            blobs.append(_encode_coeff_blob(q, params.zlib_level))
-            rec = deblockify(rec).to(torch.int32).cpu().numpy()
+            x = blockify(_to_device(pad_to_block(p, b), device), b)
+            weights = None
+            wplane = params.mc_weight
+            if use_mc and wplane is not None and wplane.shape[-2:] == (
+                    orig_h, orig_w):
+                # the reference sends the weights as uint8
+                weights = _to_device(
+                    pad_to_block(np.asarray(wplane, np.uint8), b), device)
+            coded = encode_chain(
+                x, qstep, maxval, params.gop_size, deblock=use_db,
+                thr_k=params.coeff_threshold, intra=use_intra,
+                search=use_mc, weights=weights)
+            blob = b""
+            if use_mc:
+                blob += _encode_mv_section(_host(coded["mv"]),
+                                           params.zlib_level)
+            if use_intra:
+                blob += _encode_intra_section(_host(coded["mode"]),
+                                              params.zlib_level)
+            blobs.append(blob + _encode_coeff_blob(coded["q"],
+                                                   params.zlib_level))
+            rec = deblockify(coded["rec"]).to(torch.int32).cpu().numpy()
             recon_planes.append(rec[:, :orig_h, :orig_w].astype(p.dtype))
 
     out = bytearray(header)
@@ -320,12 +368,39 @@ def _iter_blobs(payload: bytes, n_planes: int):
         pos += blob_len
 
 
+class _Plane:
+    """One lossy plane of a payload, its side sections split off: the
+    motion vectors (F, nby, nbx), the intra mode maps (n_gops, nby, nbx)
+    and the coefficients (F, nby, nbx, B, B) on ``device``, decoded from
+    ``coeff_blob``."""
+
+    def __init__(self, blob: bytes, flags: int, f: int, h: int, w: int,
+                 block: int, gop: int, device):
+        self.nby = (h + ((-h) % block)) // block
+        self.nbx = (w + ((-w) % block)) // block
+        mv, rest = None, blob
+        if flags & _MC:
+            mv, rest = _split_mv_section(blob, f, self.nby, self.nbx)
+        self.mv = mv
+        self.mode, rest, self.raw_mode = None, rest, b""
+        if flags & _INTRA:
+            n_i = (f + ((-f) % gop)) // gop
+            self.mode, rest, self.raw_mode = _split_intra_section(
+                rest, n_i, self.nby, self.nbx)
+        self.coeff_blob = rest
+        self.q = _decode_coeff_blob(rest, f, self.nby, self.nbx, block,
+                                    device)
+
+    def tensor(self, name: str):
+        x = getattr(self, name)
+        return None if x is None else torch.from_numpy(x).to(self.q.device)
+
+
 def decode(payload: bytes, device=torch.device("cpu")) -> Video:
     """Decode an RBV payload -> Video."""
     flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
         payload
     )
-    _check_flags(flags)
     fmt = ColorFormat(chroma)
     dims = _plane_dims(width, height, fmt)
     dtype = np.uint8 if bitdepth <= 8 else np.uint16
@@ -341,11 +416,10 @@ def decode(payload: bytes, device=torch.device("cpu")) -> Video:
             else:
                 planes.append(np.frombuffer(raw, dtype=dtype).reshape(f, h, w))
             continue
-        ph = h + ((-h) % block)
-        pw = w + ((-w) % block)
-        q = _decode_coeff_blob(blob, f, ph // block, pw // block, block,
-                               device)
-        rec = deblockify(decode_chain(q, _f32(qstep_of(qp)), maxval, gop))
+        pl = _Plane(blob, flags, f, h, w, block, gop, device)
+        rec = deblockify(decode_chain(
+            pl.q, _f32(qstep_of(qp)), maxval, gop, bool(flags & _DEBLOCK),
+            pl.tensor("mode"), pl.tensor("mv")))
         planes.append(rec.to(torch.int32).cpu().numpy()[:, :h, :w]
                       .astype(dtype))
     return Video(width, height, bitdepth, fmt, planes)
@@ -364,9 +438,67 @@ def _reencode_lossless(payload: bytes, new_qp: int, new_gop: int | None,
     return out
 
 
-def requantize(payload: bytes, new_qp: int, zlib_level: int = 6) -> bytes:
-    """DCT-domain requantisation (the reference's ``requant`` mode)."""
-    raise NotImplementedError(f"RBV requantize {_NOT_PORTED}")
+def requantize(payload: bytes, new_qp: int, zlib_level: int = 6,
+               device=torch.device("cpu")) -> bytes:
+    """DCT-domain transcode: re-quantise the coefficients to a new QP
+    without a pixel-domain round trip.  Non-MC streams with GOP > 1 fold
+    each frame's requantisation error into the next frame (drift
+    compensated); MC streams and GOP 1 rescale open-loop.  Motion vectors
+    and intra mode maps pass through.  Lossless streams take the
+    decode -> encode path."""
+    flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
+        payload
+    )
+    if flags & _LOSSLESS:
+        return _reencode_lossless(payload, new_qp, None, zlib_level, device)
+    if new_qp == qp:
+        return payload
+    header = _HEADER.pack(
+        _MAGIC, 2, flags, width, height, bitdepth, chroma, f, block, gop,
+        new_qp, 0,
+    )
+    dims = _plane_dims(width, height, ColorFormat(chroma))
+    qs_old, qs_new = _f32(qstep_of(qp)), _f32(qstep_of(new_qp))
+    out = bytearray(header)
+    for (h, w), blob in zip(dims, _iter_blobs(payload, len(dims))):
+        pl = _Plane(blob, flags, f, h, w, block, gop, device)
+        side = b""
+        if pl.mv is not None:
+            side = _encode_mv_section(pl.mv, zlib_level)
+        # the mode map passes through as it is (the decoder needs the
+        # encoder's DC/planar choice); the mosaic rescales in the DC slots
+        side += pl.raw_mode
+        if not flags & _MC and gop > 1:
+            q2 = tools.requant_compensated(pl.q, qs_old, qs_new, gop)
+        else:
+            q2 = tools.requant(pl.q, qs_old, qs_new)
+        new_blob = side + _encode_coeff_blob(q2, zlib_level)
+        out.extend(struct.pack("<I", len(new_blob)))
+        out.extend(new_blob)
+    return bytes(out)
+
+
+def _transcode_plane(pl: _Plane, qs_in: float, qs_out: float,
+                     maxval: float, gop: int, gop_out: int, deblock: bool,
+                     intra: bool, thr_k: int):
+    """The device part of one plane's transcode -> (int16 coefficients
+    (F, nby, nbx, B, B), intra mode maps or None).  The reference pads the
+    frames to whole GOPs first; every chain is causal, so the first F output
+    frames (and the mode maps of their GOPs) do not depend on the padding.
+    """
+    if pl.mv is None and not intra and not deblock and not thr_k:
+        # the branch of the fused kernel
+        return transcode_coeffs(pl.q, qs_in, qs_out, maxval, gop,
+                                gop_out), None
+    if pl.mv is None and not intra:
+        return transcode_coeffs_ref(pl.q, qs_in, qs_out, maxval, gop,
+                                    gop_out, deblock, thr_k), None
+    mv = pl.tensor("mv")
+    pixels = decode_chain(pl.q, qs_in, maxval, gop, deblock,
+                          pl.tensor("mode"), mv)
+    coded = encode_chain(pixels, qs_out, maxval, gop_out, recon=False,
+                         deblock=deblock, thr_k=thr_k, intra=intra, mv=mv)
+    return coded["q"], coded["mode"]
 
 
 def transcode_payload(
@@ -379,17 +511,19 @@ def transcode_payload(
 ) -> bytes:
     """Drift-free transcode: entropy decode on the host, the fused
     decode -> re-encode on ``device`` (pixels never leave it), entropy
-    encode on the host."""
+    encode on the host.  MC streams keep their GOP (the motion vectors are
+    bound to it) and reuse their motion vectors; intra streams re-code
+    their I frames through the mosaic predictors."""
     flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
         payload
     )
     if flags & _LOSSLESS:
         return _reencode_lossless(payload, new_qp, new_gop, zlib_level,
                                   device)
-    _check_flags(flags)
-    if coeff_threshold:
-        raise NotImplementedError(f"RBV coefficient threshold {_NOT_PORTED}")
-    gop_out = new_gop or gop
+    use_mc = bool(flags & _MC)
+    use_db = bool(flags & _DEBLOCK)
+    use_intra = bool(flags & _INTRA)
+    gop_out = gop if use_mc else (new_gop or gop)
     header = _HEADER.pack(
         _MAGIC, 2, flags, width, height, bitdepth, chroma, f, block, gop_out,
         new_qp, 0,
@@ -401,17 +535,19 @@ def transcode_payload(
 
     def one_plane(args) -> bytes:
         (h, w), blob = args
-        nby = (h + ((-h) % block)) // block
-        nbx = (w + ((-w) % block)) // block
-        q = _decode_coeff_blob(blob, f, nby, nbx, block, device)
-        # the reference pads the frames to whole GOPs first; both chains are
-        # causal, so the first f output frames do not depend on the padding
-        q2 = transcode_coeffs(q, qs_in, qs_out, maxval, gop, gop_out)
-        return _encode_coeff_blob(q2, zlib_level)
+        pl = _Plane(blob, flags, f, h, w, block, gop, device)
+        q2, mode2 = _transcode_plane(pl, qs_in, qs_out, maxval, gop, gop_out,
+                                     use_db, use_intra, coeff_threshold)
+        side = b"" if pl.mv is None else _encode_mv_section(pl.mv,
+                                                             zlib_level)
+        if mode2 is not None:
+            n_i_out = (f + ((-f) % gop_out)) // gop_out
+            side += _encode_intra_section(_host(mode2)[:n_i_out], zlib_level)
+        return side + _encode_coeff_blob(q2, zlib_level)
 
     # one thread per plane: host entropy (rANS, inflate/deflate release the
     # interpreter lock) overlaps across planes while the device queue runs
-    # the kernels in order; ex.map keeps the plane order
+    # the chains in order; ex.map keeps the plane order
     with cf.ThreadPoolExecutor(max_workers=max(1, len(dims))) as ex:
         blobs = list(ex.map(one_plane, zip(dims, _iter_blobs(payload,
                                                              len(dims)))))

@@ -69,3 +69,78 @@ def test_kernel_on_every_device_while_device_0_is_current(cuda):
         assert got.device == dev
         assert torch.equal(got.cpu(), want)
     assert torch.cuda.current_device() == 0
+
+
+def _moving_frames(f=4, h=48, w=64, move=4):
+    yy, xx = np.mgrid[0:h, 0:w]
+    rng = np.random.default_rng(2)
+    return np.stack([
+        np.clip(512 + 300 * np.sin((xx + move * k) / 9.0) * np.cos(yy / 7.0)
+                + rng.normal(scale=8.0, size=(h, w)), 0, 1023)
+        for k in range(f)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(search=True, intra=True, weighted=True),
+    dict(search=True, deblock=True, thr_k=8),
+    dict(intra=True, deblock=True, thr_k=8),
+])
+def test_coding_tools_on_the_card_equal_the_cpu(cuda, kw):
+    # the plain chains spell out every order and rounding that feeds a
+    # rounding, so the card computes the CPU's values bit for bit
+    from rabbit_transcoding_tpu_torch.ops.dct import blockify
+
+    kw = dict(kw)
+    frames = torch.from_numpy(_moving_frames())
+    weights = (frames > 400).to(torch.float32) if kw.pop("weighted", False) \
+        else None
+    qs = _qs(26)
+    want = tc.encode_chain(blockify(frames, 16), qs, 1023.0, 2,
+                           weights=weights, **kw)
+    got = tc.encode_chain(
+        blockify(frames.to(cuda), 16), qs, 1023.0, 2,
+        weights=None if weights is None else weights.to(cuda), **kw)
+    for key in ("q", "rec", "mode", "mv"):
+        if want[key] is not None:
+            assert torch.equal(got[key].cpu(), want[key]), key
+    mode, mv = want["mode"], want["mv"]
+    dec_args = (qs, 1023.0, 2, kw.get("deblock", False))
+    want_dec = tc.decode_chain(want["q"], *dec_args, mode, mv)
+    got_dec = tc.decode_chain(
+        want["q"].to(cuda), *dec_args,
+        None if mode is None else mode.to(cuda),
+        None if mv is None else mv.to(cuda))
+    assert torch.equal(got_dec.cpu(), want_dec)
+
+
+def test_requant_on_the_card_equals_the_cpu(cuda):
+    from rabbit_transcoding_tpu_torch.ops import rbv_tools as tools
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(np.round(rng.laplace(
+        scale=8.0, size=(5, 3, 4, 16, 16))).astype(np.int16))
+    for fn in (lambda x: tools.requant(x, _qs(20), _qs(27)),
+               lambda x: tools.requant_compensated(x, _qs(20), _qs(27), 2)):
+        assert torch.equal(fn(q.to(cuda)).cpu(), fn(q))
+
+
+@pytest.mark.parametrize("mode", ["reencode", "requant"])
+def test_mc_intra_stream_transcodes_on_the_card_as_on_the_cpu(cuda, mode):
+    from rabbit_transcoding_tpu_torch.testdata import make_stream
+    from rabbit_transcoding_tpu_torch.transcoder import (
+        Transcoder, TranscoderParameters, V3CReader, V3CWriter)
+
+    data = make_stream(4, 64, 64, device=cuda, motion=True, intra=True)
+    assert data == make_stream(4, 64, 64, motion=True, intra=True)
+    params = TranscoderParameters(geometryQP=32, attributeQP=42, mode=mode)
+
+    def run(device) -> bytes:
+        reader = V3CReader()
+        context = reader.decode(reader.read(data)[0])
+        Transcoder(params, device).transcode(context)
+        writer = V3CWriter()
+        return writer.write(writer.encode(context))
+
+    before = tc.LAUNCHES
+    assert run(cuda) == run(torch.device("cpu"))
+    assert tc.LAUNCHES == before  # these branches run the plain chains

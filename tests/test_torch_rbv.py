@@ -1,6 +1,7 @@
-"""The port's RBV codec slice against the JAX reference, byte for byte:
-slab layout, entropy blobs, encode, decode and transcode_payload; and
-``NotImplementedError`` for the stream features outside the slice."""
+"""The port's RBV codec against the JAX reference, byte for byte: slab
+layout, entropy blobs, encode, decode and transcode_payload of plain
+streams, and a first check of each coding tool (MC, intra, deblocking,
+threshold, requantisation)."""
 
 import struct
 import zlib
@@ -56,7 +57,7 @@ def _port_params(**kw):
     return rbv.RbvParams(**kw)
 
 
-# --- slab layout ------------------------------------------------------------
+# --- slab layout -------------------------------------------------------------
 def test_freq_slab_round_trip_and_layout():
     c = _coeffs(0)
     q = torch.from_numpy(c)
@@ -76,7 +77,7 @@ def test_freq_slab_round_trip_and_layout():
         rbv._from_freq_slab(qf.contiguous(), 16, 256).numpy(), c)
 
 
-# --- entropy blobs ----------------------------------------------------------
+# --- entropy blobs -----------------------------------------------------------
 @pytest.mark.parametrize("case", ["sparse", "dense", "zero", "dc_only"])
 def test_encode_coeff_blob_bytes_identical(case):
     if case == "sparse":
@@ -151,7 +152,7 @@ def test_decode_coeff_blob_rejects_old_modes(mode):
         rbv._decode_coeff_blob(bytes([mode]) + b"\0" * 16, 1, 1, 1, 16, CPU)
 
 
-# --- encode / decode / transcode_payload ------------------------------------
+# --- encode / decode / transcode_payload -------------------------------------
 _LOSSY = [
     # (frames, h, w, bitdepth, format, qp, gop)
     (4, 48, 64, 10, ColorFormat.YUV400, 16, 2),
@@ -227,31 +228,34 @@ def test_probe_equal():
     assert rbv.probe(payload) == ref.probe(payload)
 
 
-# --- outside the slice ------------------------------------------------------
+# --- the coding tools beyond the plain I/P chain -----------------------------
+# (tests/test_torch_rbv_tools.py and tests/test_torch_rbv_streams.py cover
+# them in depth)
 @pytest.mark.parametrize("feature", ["motion", "intra"])
 def test_streams_outside_the_slice_raise(feature):
     video = _video(2, 32, 32, 8, ColorFormat.YUV400)
     payload, _ = ref.encode(video, _ref_params(qp=30, gop_size=2,
                                                **{feature: True}))
     assert ref.probe(payload)[feature]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbv.transcode_payload(payload, 34)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbv.decode(payload)
+    assert rbv.transcode_payload(payload, 34) == ref.transcode_payload(
+        payload, 34)
+    for a, b in zip(rbv.decode(payload).planes, ref.decode(payload).planes):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("kw", [{"motion": True}, {"intra": True},
                                 {"deblock": True}, {"coeff_threshold": 8}])
 def test_encode_options_outside_the_slice_raise(kw):
     video = _video(2, 32, 32, 8, ColorFormat.YUV400)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbv.encode(video, _port_params(qp=30, gop_size=2, **kw))
+    want, want_rec = ref.encode(video, _ref_params(qp=30, gop_size=2, **kw))
+    got, got_rec = rbv.encode(video, _port_params(qp=30, gop_size=2, **kw))
+    assert got == want
+    np.testing.assert_array_equal(got_rec.planes[0], want_rec.planes[0])
 
 
 def test_requantize_and_threshold_raise():
     payload, _ = ref.encode(_video(2, 32, 32, 8, ColorFormat.YUV400),
                             _ref_params(qp=30))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbv.requantize(payload, 36)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbv.transcode_payload(payload, 36, coeff_threshold=8)
+    assert rbv.requantize(payload, 36) == ref.requantize(payload, 36)
+    assert (rbv.transcode_payload(payload, 36, coeff_threshold=8)
+            == ref.transcode_payload(payload, 36, coeff_threshold=8))

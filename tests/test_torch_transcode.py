@@ -115,9 +115,10 @@ def test_encode_and_decode_chains_match_jax(gop):
     qs, maxval = _qs(20), 1023.0
     q_ref, rec_ref = _encode_device(jnp.asarray(frames), jnp.float32(qs),
                                     jnp.float32(maxval), 16, gop)
-    q, rec = tc.encode_chain(
+    coded = tc.encode_chain(
         blockify(torch.from_numpy(frames.astype(np.float32)), 16), qs,
         maxval, gop)
+    q, rec = coded["q"], coded["rec"]
     np.testing.assert_array_equal(q.numpy(), np.array(q_ref))
     np.testing.assert_array_equal(deblockify(rec).numpy(),
                                   np.asarray(rec_ref).astype(np.float32))

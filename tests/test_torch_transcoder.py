@@ -111,8 +111,14 @@ def test_app_options_not_ported_raise(option, tmp_path, monkeypatch):
     {"rate_mode": "abr", "targetBitrateMbps": 1.0},
 ])
 def test_modes_not_ported_raise(stream, kw):
+    params = TranscoderParameters(**kw)
+    if kw.get("mode") == "requant":
+        # ported: DCT-domain requantisation, as the reference
+        assert (_transcode(stream, Transcoder(params, "cpu"))
+                == _transcode(stream, RefTranscoder(params)))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _transcode(stream, Transcoder(TranscoderParameters(**kw), "cpu"))
+        _transcode(stream, Transcoder(params, "cpu"))
 
 
 def _lossless_geometry_stream(with_occupancy: bool) -> bytes:
