@@ -25,7 +25,24 @@ Phases, one result line each; any failure raises and the exit code is not 0:
    sub-stream decoding, and the output held against a ``device=cpu`` run;
 7. ``requant`` mode on both streams (the bench stream requantises drift-
    compensated, the MC + intra stream open-loop), timed and held against
-   ``device=cpu`` runs in the same way.
+   ``device=cpu`` runs in the same way;
+8. batched kernel: the stream-axis launch over S = 4 luma stacks
+   (4, 32, 64, 64, 16, 16) at input QPs 16/18/20/22 against 4 single-stream
+   launches (equal) and against its plain version, with both times;
+9. multi-stream, bench streams: S = 1, 2, 4 streams (the bench stream
+   requantised to input QPs 16/18/20/22) through
+   ``MultiStreamTranscoder(device=cuda).transcode_many``, one warm-up and 3
+   timed runs, 4 kernel launches per run whatever S, every output equal to
+   ``Transcoder(device=cuda)`` on that stream alone; aggregate frames/s of
+   the batched run and of the sequential loop;
+10. multi-stream, MC + intra: phase 5's stream and a requantised copy, the
+    batched plain chains against the sequential port;
+11. lossless input over an occupancy map (push-pull fill), a predicted map
+    pair (built without MC) and ABR (on the bench stream, targeting phase
+    4's output bit rate at 30 fps), each at 1024x1024, timed, and held
+    against a ``device=cpu`` run at 256x256, 8 frames;
+12. stream app: ``transcode_streams_sharded`` over 2 streams x 2 GOFs equals
+    ``transcode_stream`` on each, with no batched-round failure.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports only the port, which imports
@@ -47,10 +64,11 @@ import torch
 import rabbit_transcoding_tpu_torch
 from rabbit_transcoding_tpu_torch.ops import _build
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
-from rabbit_transcoding_tpu_torch.testdata import make_stream
+from rabbit_transcoding_tpu_torch.apps import stream as stream_app
+from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
 from rabbit_transcoding_tpu_torch.transcoder import (
-    ColorFormat, Transcoder, TranscoderParameters, V3CReader, V3CWriter,
-    VideoType,
+    ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
+    V3CReader, V3CWriter, VideoType,
 )
 from rabbit_transcoding_tpu_torch.video import rbv
 
@@ -66,6 +84,11 @@ FRAMES, WIDTH, HEIGHT = 32, 1024, 1024
 GEO_QP, ATTR_QP = 32, 42
 KERNEL_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_gops.cu"
 REPLACES = "rabbit_transcoding_tpu/ops/pallas_transcode.py:86"
+# input QPs (geometry; attribute + 6) of the multi-stream phases' streams
+STREAM_QPS = (16, 18, 20, 22)
+# the reduced size of the CPU runs that the lossless, map-pair and ABR
+# phases are held against
+SMALL = (8, 256, 256)
 
 
 def phase(name: str, **fields) -> None:
@@ -115,8 +138,11 @@ def stream_planes(data: bytes, device) -> dict:
     reader = V3CReader()
     atlas = reader.decode(reader.read(data)[0]).atlas(0)
     out = {}
-    for vt in (VideoType.GEOMETRY, VideoType.ATTRIBUTE):
-        payload = atlas.get_video_bitstream(vt).data
+    for vt, vb in sorted(atlas.video_bitstreams.items(),
+                         key=lambda kv: kv[0].value):
+        payload = vb.data
+        if vt == VideoType.OCCUPANCY or rbv.probe(payload)["lossless"]:
+            continue
         flags, w, h, _, chroma, f, b, gop, _ = rbv._parse_header(payload)
         dims = rbv._plane_dims(w, h, ColorFormat(chroma))
         for k, ((ph, pw), blob) in enumerate(
@@ -137,6 +163,7 @@ def gpu_vs_cpu(name: str, got: bytes, want: bytes, dev, **fields) -> None:
     and equal motion vectors."""
     a, b = stream_planes(got, dev), stream_planes(want, dev)
     worst_q, worst_mode, mv_equal = (0.0, 0), (0.0, 0), True
+    check(a.keys() == b.keys(), f"{name}: video sets {a.keys()} {b.keys()}")
     for key in b:
         worst_q = max(worst_q, compare(a[key].q, b[key].q))
         if b[key].mode is not None:
@@ -158,8 +185,8 @@ def check_decodes(out: bytes, dev) -> None:
     """Every output sub-stream decodes with the port at the stream's size."""
     reader_out = V3CReader()
     atlas = reader_out.decode(reader_out.read(out)[0]).atlas(0)
-    for vt in (VideoType.OCCUPANCY, VideoType.GEOMETRY, VideoType.ATTRIBUTE):
-        video = rbv.decode(atlas.get_video_bitstream(vt).data, dev)
+    for vt, vb in atlas.video_bitstreams.items():
+        video = rbv.decode(vb.data, dev)
         want_w = WIDTH // 2 if vt == VideoType.OCCUPANCY else WIDTH
         check(video.frame_count == FRAMES and video.width == want_w
               and all(p.shape[0] == FRAMES for p in video.planes),
@@ -176,6 +203,213 @@ def timed_runs(run, n: int = 3) -> tuple[bytes, list[float]]:
         if i:
             walls.append(time.perf_counter() - t0)
     return out, walls
+
+
+def qstep(qp: int) -> float:
+    return float(np.float32(rbv.qstep_of(qp)))
+
+
+def write_context(context) -> bytes:
+    writer = V3CWriter()
+    return writer.write(writer.encode(context))
+
+
+def transcode_bytes(data: bytes, device, params,
+                    transcoder=None) -> bytes:
+    """The first GOF of ``data`` through ``Transcoder(params, device)`` (or
+    the given one) -> V3C bytes, the device synchronised."""
+    reader = V3CReader()
+    context = reader.decode(reader.read(data)[0])
+    (transcoder or Transcoder(params, device)).transcode(context)
+    out = write_context(context)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def transcode_many_bytes(datas: list[bytes], device, params,
+                         mst=None) -> list[bytes]:
+    """The first GOF of each stream through one ``MultiStreamTranscoder``
+    call -> V3C bytes per stream, the device synchronised."""
+    reader = V3CReader()
+    contexts = [reader.decode(reader.read(d)[0]) for d in datas]
+    (mst or MultiStreamTranscoder(params, device)).transcode_many(contexts)
+    outs = [write_context(c) for c in contexts]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return outs
+
+
+def batched_kernel_phase(streams: list[bytes], dev, card) -> dict:
+    """8. The stream-axis launch over the luma of the streams (input QPs
+    STREAM_QPS) against one launch per stream and the plain version."""
+    c = torch.stack([stream_coeffs(d, dev)[("GEOMETRY", 0)]
+                     for d in streams])
+    check(tuple(c.shape) == (len(STREAM_QPS), FRAMES, HEIGHT // 16,
+                             WIDTH // 16, 16, 16), f"stack {c.shape}")
+    qs_in = torch.tensor([qstep(q) for q in STREAM_QPS], device=dev)
+    qs_out = torch.full((len(streams),), qstep(GEO_QP), device=dev)
+    args = (c, qs_in, qs_out, 1023.0, 2, 2)
+    got = tc.transcode_coeffs_batched(*args)
+
+    def singles():
+        return [tc.transcode_coeffs(c[i], qstep(q), qstep(GEO_QP), 1023.0,
+                                    2, 2)
+                for i, q in enumerate(STREAM_QPS)]
+
+    equal = all(torch.equal(got[i], one) for i, one in enumerate(singles()))
+    want = tc.transcode_coeffs_batched_ref(*args)
+    share, diff = compare(got, want)
+    b_ms = median_ms(lambda: tc.transcode_coeffs_batched(*args))
+    s_ms = median_ms(singles)
+    p_ms = median_ms(lambda: tc.transcode_coeffs_batched_ref(*args), n=5)
+    phase("batched_kernel", shape=tuple(c.shape), input_qps=STREAM_QPS,
+          equal_to_single_launches=equal, share=share, max_abs_diff=diff,
+          kernel_ms=f"{b_ms:.4f}", single_launches_ms=f"{s_ms:.4f}",
+          plain_ms=f"{p_ms:.4f}", card=repr(card))
+    check(equal, "batched launch differs from single-stream launches")
+    check(share <= MAX_SHARE and diff <= MAX_DIFF,
+          f"batched kernel vs plain: share {share}, |diff| {diff}")
+    return {"max_abs_err": diff, "ms": b_ms, "plain_ms": p_ms}
+
+
+def multistream_phase(streams: list[bytes], dev, params, card) -> int:
+    """9. S = 1, 2, 4 streams batched against the sequential loop ->
+    batched kernel launches of the S = 4 runs."""
+    launches = 0
+    for s in (1, 2, 4):
+        datas = streams[:s]
+        mst = MultiStreamTranscoder(params, dev)
+        tc.LAUNCHES = tc.BATCHED_LAUNCHES = 0
+        outs, walls = timed_runs(
+            lambda: transcode_many_bytes(datas, dev, params, mst))
+        runs = len(walls) + 1
+        check(tc.LAUNCHES == tc.BATCHED_LAUNCHES == 4 * runs,
+              f"S={s}: {tc.LAUNCHES} launches ({tc.BATCHED_LAUNCHES} "
+              f"batched) in {runs} runs, want 4 batched per run")
+        launches = tc.BATCHED_LAUNCHES
+        seq, seq_walls = timed_runs(
+            lambda: [transcode_bytes(d, dev, params) for d in datas])
+        wall, seq_wall = statistics.median(walls), statistics.median(
+            seq_walls)
+        phase("multistream", streams=s, runs=len(walls),
+              wall_s=repr(walls), median_s=f"{wall:.4f}",
+              frames_per_s=f"{FRAMES * s / wall:.3f}",
+              sequential_wall_s=repr(seq_walls),
+              sequential_median_s=f"{seq_wall:.4f}",
+              sequential_frames_per_s=f"{FRAMES * s / seq_wall:.3f}",
+              launches_per_run=tc.BATCHED_LAUNCHES // runs,
+              bytes_equal=outs == seq, card=repr(card))
+        check(outs == seq, f"S={s}: batched output differs from the "
+                           f"sequential port")
+    return launches
+
+
+def multistream_mc_intra_phase(data_mi: bytes, dev, params, card) -> None:
+    """10. The MC + intra stream and a requantised copy, batched through
+    the plain chains, against the sequential port."""
+    datas = [data_mi, with_input_qps(data_mi, 18, 24, dev)]
+    tc.LAUNCHES = 0
+    outs, walls = timed_runs(lambda: transcode_many_bytes(datas, dev, params),
+                             n=1)
+    seq, seq_walls = timed_runs(
+        lambda: [transcode_bytes(d, dev, params) for d in datas], n=1)
+    phase("multistream_mc_intra", streams=2, wall_s=repr(walls),
+          sequential_wall_s=repr(seq_walls), launches=tc.LAUNCHES,
+          bytes_equal=outs == seq, card=repr(card))
+    check(outs == seq, "MC + intra: batched output differs from sequential")
+    check(tc.LAUNCHES == 0, f"MC + intra: {tc.LAUNCHES} kernel launches")
+
+
+def full_and_small_phase(name: str, full: bytes, small: bytes, dev,
+                         params, small_params, card, **fields) -> None:
+    """11. ``full`` timed on the card; ``small`` on the card held against
+    the CPU."""
+    out, walls = timed_runs(lambda: transcode_bytes(full, dev, params))
+    wall = statistics.median(walls)
+    phase(name, runs=len(walls), wall_s=repr(walls), median_s=f"{wall:.4f}",
+          frames_per_s=f"{FRAMES / wall:.3f}", in_bytes=len(full),
+          out_bytes=len(out), card=repr(card), **fields)
+    check_decodes(out, dev)
+    got = transcode_bytes(small, dev, small_params)
+    t0 = time.perf_counter()
+    want = transcode_bytes(small, torch.device("cpu"), small_params)
+    gpu_vs_cpu(f"{name}_vs_cpu", got, want, dev, size=SMALL,
+               cpu_wall_s=f"{time.perf_counter() - t0:.3f}")
+
+
+def abr_phase(data: bytes, target_mbps: float, dev, card) -> None:
+    """11. ABR on the bench stream: the full QP search per run (a fresh
+    Transcoder), timed; at the reduced size the chosen QPs and the output
+    equal the CPU's."""
+    params = TranscoderParameters(rate_mode="abr",
+                                  targetBitrateMbps=target_mbps)
+    transcoders = []
+
+    def run_abr() -> bytes:
+        transcoders.append(Transcoder(params, dev))
+        return transcode_bytes(data, dev, params, transcoders[-1])
+
+    out, walls = timed_runs(run_abr)
+    wall = statistics.median(walls)
+    phase("abr", runs=len(walls), wall_s=repr(walls), median_s=f"{wall:.4f}",
+          frames_per_s=f"{FRAMES / wall:.3f}",
+          target_mbps=f"{target_mbps:.4f}", out_bytes=len(out),
+          qps=repr(transcoders[-1]._rc_cache), card=repr(card))
+    small = make_stream(*SMALL)
+    small_params = TranscoderParameters(
+        rate_mode="abr", targetBitrateMbps=target_mbps * SMALL[1] * SMALL[2]
+        / (WIDTH * HEIGHT))
+    gpu, cpu = (Transcoder(small_params, dev),
+                Transcoder(small_params, torch.device("cpu")))
+    got = transcode_bytes(small, dev, small_params, gpu)
+    want = transcode_bytes(small, torch.device("cpu"), small_params, cpu)
+    gpu_vs_cpu("abr_vs_cpu", got, want, dev, size=SMALL,
+               qps=repr(gpu._rc_cache))
+    check(gpu._rc_cache == cpu._rc_cache,
+          f"ABR QPs: GPU {gpu._rc_cache} CPU {cpu._rc_cache}")
+
+
+def stream_app_phase(streams: list[bytes], dev, card) -> None:
+    """12. The stream app's batched mode against its per-stream mode: 2
+    streams x 2 GOFs, in a directory of the checkout's build tree."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    reader, writer = V3CReader(), V3CWriter()
+    inputs = []
+    for i, gofs in enumerate((streams[:2], streams[2:4])):
+        units = []
+        for d in gofs:
+            units.extend(writer.encode(reader.decode(reader.read(d)[0])))
+        inputs.append(str(work / f"in{i}.bin"))
+        writer.write_file(units, inputs[-1])
+    params = stream_app.StreamParams(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                     mode="reencode")
+    plain = [str(work / f"plain{i}.bin") for i in range(2)]
+    batched = [str(work / f"batched{i}.bin") for i in range(2)]
+    t0 = time.perf_counter()
+    for path, out in zip(inputs, plain):
+        stream_app.transcode_stream(path, out, params, dev)
+    plain_s = time.perf_counter() - t0
+    tc.BATCHED_LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = stream_app.transcode_streams_sharded(inputs, batched, params,
+                                                   dev)
+    batched_s = time.perf_counter() - t0
+    equal = all(Path(a).read_bytes() == Path(b).read_bytes()
+                for a, b in zip(plain, batched))
+    failures = [r["failures"] for r in results]
+    batched_failures = [r["batched_failures"] for r in results]
+    phase("stream_app", streams=2, gofs=2, bytes_equal=equal,
+          failures=failures, batched_failures=batched_failures,
+          batched_launches=tc.BATCHED_LAUNCHES,
+          per_stream_wall_s=f"{plain_s:.3f}",
+          batched_wall_s=f"{batched_s:.3f}", card=repr(card))
+    check(equal, "stream app: batched output differs from per-stream")
+    check(failures == [0, 0] and batched_failures == [0, 0],
+          f"stream app failures {failures}, batched {batched_failures}")
+    check(tc.BATCHED_LAUNCHES == 8,
+          f"stream app: {tc.BATCHED_LAUNCHES} batched launches, want 8")
 
 
 def main() -> int:
@@ -272,6 +506,7 @@ def main() -> int:
         if i:
             walls.append(wall)
     launches = tc.LAUNCHES
+    main_out_bytes = len(out)
     wall = statistics.median(walls)
     phase("main_path", runs=len(walls), wall_s=repr(walls),
           median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
@@ -322,11 +557,38 @@ def main() -> int:
         gpu_vs_cpu(f"{name}_vs_cpu", out, out_cpu, dev,
                    cpu_wall_s=f"{time.perf_counter() - t0:.3f}")
 
+    # 8.-10. the batched kernel and the multi-stream transcoder
+    t0 = time.perf_counter()
+    streams = [with_input_qps(data, q, q + 6, dev) for q in STREAM_QPS]
+    phase("multistream_streams", input_qps=STREAM_QPS,
+          bytes=[len(d) for d in streams],
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    batched = batched_kernel_phase(streams, dev, card)
+    batched["launches"] = multistream_phase(streams, dev, params, card)
+    multistream_mc_intra_phase(data_mi, dev, params, card)
+
+    # 11. lossless input with occupancy, a predicted map pair, ABR
+    for name, kw in (("lossless_fill", {"lossless": True}),
+                     ("map_pair", {"map_pair": True})):
+        t0 = time.perf_counter()
+        full = make_stream(FRAMES, WIDTH, HEIGHT, device=dev, **kw)
+        build_s = time.perf_counter() - t0
+        full_and_small_phase(name, full, make_stream(*SMALL, **kw), dev,
+                             params, params, card,
+                             build_s=f"{build_s:.3f}")
+    abr_phase(data, main_out_bytes * 8 * 30.0 / FRAMES / 1e6, dev, card)
+
+    # 12. the stream app's batched mode
+    stream_app_phase(streams, dev, card)
+
     k_ms, p_ms = times["luma"]
     print(json.dumps({"kernels": [{
         "name": "transcode_gops", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
+    }, {
+        "name": "transcode_gops_batched", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES, **batched,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

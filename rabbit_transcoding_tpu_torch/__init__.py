@@ -6,12 +6,14 @@ its one device kernel (the fused GOP transcode) written by hand in CUDA C++
 (``csrc/transcode_gops.cu``).  Module names follow the reference so each
 counterpart is easy to find:
 
-  apps/        CLI entry point (``python -m rabbit_transcoding_tpu_torch.apps.transcode``)
-  transcoder/  the RBV slice of the live V3C transcoder
-  video/       RBV codec slice (entropy on the host, transforms on the device)
-  ops/         DCT helpers, the transcode kernel's wrapper and its build
+  apps/        CLI entry points (``python -m rabbit_transcoding_tpu_torch.apps.transcode``,
+               ``...apps.stream`` for several resumable streams)
+  transcoder/  the live V3C transcoder on RBV streams, single and multi-stream
+  parallel/    the batched multi-stream transcode of RBV payloads
+  video/       the RBV codec (entropy on the host, transforms on the device)
+  ops/         DCT, coding tools, push-pull fill, the kernel's wrappers and build
   csrc/        CUDA sources, compiled with nvcc at first use
-  testdata.py  the benchmark's synthetic V3C stream
+  testdata.py  the benchmark's synthetic V3C stream and its variants
 
 Host layers that hold no JAX (bitstream, native rANS, params, hashing) are
 imported from the reference package, never copied.  Nothing here imports

@@ -2,14 +2,17 @@
 
     python -m rabbit_transcoding_tpu_torch.apps.profile_transcode \
         [--device cuda] [--frames 32] [--size 1024] [--runs 5] \
-        [--tools plain|mc_intra] [--out FILE]
+        [--tools plain|mc_intra] [--streams 1] [--out FILE]
 
 Three views of the same transcode (the 1024x1024, 32-frame benchmark stream
 to geometry QP 32 / attribute QP 42 in ``reencode`` mode, hash SEI on).
 ``--tools=mc_intra`` codes the stream's lossy planes as the repo's encoder
 does by default (motion compensation with the occupancy-weighted search,
 mosaic intra I frames), so the transcode runs the plain MC and intra chains
-on the device instead of the fused kernel:
+on the device instead of the fused kernel.  ``--streams=S`` (S > 1) times
+and profiles S streams (the stream requantised to input QPs 16, 18, ...)
+through one ``MultiStreamTranscoder`` call per GOF instead (views 1 and 2;
+view 3 stays the first stream's):
 
 1. wall seconds per GOF over ``--runs`` runs after 2 warm-ups, with the
    transcoder's ``StageTimer`` stages (median over the runs);
@@ -36,10 +39,10 @@ import time
 import numpy as np
 import torch
 
-from ..testdata import make_stream
+from ..testdata import make_stream, with_input_qps
 from ..transcoder import (
-    ColorFormat, Transcoder, TranscoderParameters, V3CReader, V3CWriter,
-    VideoType,
+    ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
+    V3CReader, V3CWriter, VideoType,
 )
 from ..video import rbv
 
@@ -68,6 +71,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--tools", choices=("plain", "mc_intra"),
                     default="plain")
+    ap.add_argument("--streams", type=int, default=1)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
@@ -80,7 +84,7 @@ def main(argv: list[str] | None = None) -> int:
     card = _card()
     emit(f"card {card}; torch {torch.__version__}; device {dev}; "
          f"{args.frames} frames of {args.size}x{args.size}; "
-         f"tools {args.tools}")
+         f"tools {args.tools}; streams {args.streams}")
     mc_intra = args.tools == "mc_intra"
     data = make_stream(args.frames, args.size, args.size, device=dev,
                        motion=mc_intra, intra=mc_intra)
@@ -88,14 +92,24 @@ def main(argv: list[str] | None = None) -> int:
                                   mode="reencode", computeHashSei=True)
     reader = V3CReader()
     units = reader.read(data)[0]
+    streams = [reader.read(with_input_qps(data, 16 + 2 * i, 22 + 2 * i,
+                                          dev))[0]
+               for i in range(args.streams)] if args.streams > 1 else []
 
     def run() -> tuple[float, dict[str, float]]:
         t0 = time.perf_counter()
-        context = reader.decode(list(units))
-        transcoder = Transcoder(params, dev)
-        transcoder.transcode(context)
         writer = V3CWriter()
-        writer.write(writer.encode(context))
+        if streams:
+            contexts = [reader.decode(list(u)) for u in streams]
+            transcoder = MultiStreamTranscoder(params, dev)
+            transcoder.transcode_many(contexts)
+            for context in contexts:
+                writer.write(writer.encode(context))
+        else:
+            context = reader.decode(list(units))
+            transcoder = Transcoder(params, dev)
+            transcoder.transcode(context)
+            writer.write(writer.encode(context))
         _sync(dev)
         return time.perf_counter() - t0, transcoder.timer.stages
 
@@ -109,7 +123,7 @@ def main(argv: list[str] | None = None) -> int:
         stages.append(st)
     median = statistics.median(walls)
     emit(f"walls_s {walls!r} median_s {median!r} "
-         f"frames_per_s {args.frames / median!r}")
+         f"frames_per_s {args.frames * max(1, args.streams) / median!r}")
     emit("stage_ms_median " + json.dumps(
         {k: statistics.median(s[k] for s in stages) for k in stages[0]}))
 

@@ -14,6 +14,13 @@
 // Any (gop_in, gop_out): the decode chain restarts at f % gop_in == 0 and
 // the encode chain at f % gop_out == 0.
 //
+// Streams.  The batched entry point takes S streams of one shape stacked on
+// a leading axis, (S, frames, n_blocks, 16, 16), with one (qs_in, qs_out)
+// pair per stream in device memory (the batched multi-stream transcode, one
+// launch per plane for the whole group).  Grid (n_blocks, S): each CTA reads
+// its stream's steps once and runs the single-stream body unchanged, so the
+// output equals S single-stream launches bit for bit.
+//
 // Design.  Without motion compensation or deblocking, every 16x16 block
 // position is independent across the whole frame sequence, so the TPU's
 // schedule (one program per (GOP, block row) with the row resident in
@@ -97,14 +104,22 @@ __device__ __forceinline__ float quantize(float c, float qs, float dz) {
   return fminf(fmaxf(v, -32767.f), 32767.f);
 }
 
+// qs_in_s / qs_out_s: per-stream steps (S,) in device memory, or null for
+// one stream at the scalar steps qs_in / qs_out.
 __global__ void __launch_bounds__(kThreads)
 transcode_gops_kernel(const int16_t* __restrict__ in,
                       int16_t* __restrict__ out,
                       const float* __restrict__ dmat, int frames,
-                      int n_blocks, int gop_in, int gop_out, float qs_in,
+                      int n_blocks, int gop_in, int gop_out,
+                      const float* __restrict__ qs_in_s,
+                      const float* __restrict__ qs_out_s, float qs_in,
                       float qs_out, float maxval, float dz_intra,
                       float dz_inter) {
   __shared__ float tile[kB][kB];
+  if (qs_in_s != nullptr) {
+    qs_in = qs_in_s[blockIdx.y];
+    qs_out = qs_out_s[blockIdx.y];
+  }
   const int i = threadIdx.x / kB;
   const int j = threadIdx.x % kB;
   // IDCT = D^T C D: left with column i of D, right with column j.
@@ -118,7 +133,8 @@ transcode_gops_kernel(const int16_t* __restrict__ in,
     row_j[k] = dmat[j * kB + k];
   }
   const int64_t frame_stride = static_cast<int64_t>(n_blocks) * kThreads;
-  int64_t off = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  int64_t off = static_cast<int64_t>(blockIdx.y) * frames * frame_stride +
+                static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   float dec_prev = 0.f;
   float enc_prev = 0.f;
   int16_t next = in[off];
@@ -147,6 +163,43 @@ transcode_gops_kernel(const int16_t* __restrict__ in,
 
 }  // namespace
 
+namespace {
+
+// Selects `device`, launches on `stream`, restores the caller's device.
+int launch(const void* in, void* out, const void* dmat, int streams,
+           int frames, int n_blocks, int gop_in, int gop_out,
+           const float* qs_in_s, const float* qs_out_s, float qs_in,
+           float qs_out, float maxval, float dz_intra, float dz_inter,
+           int device, void* stream) {
+  if (streams <= 0 || streams > 65535 || frames <= 0 || n_blocks <= 0 ||
+      gop_in <= 0 || gop_out <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) {
+    err = cudaSetDevice(device);
+  }
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  transcode_gops_kernel<<<dim3(n_blocks, streams), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(in), static_cast<int16_t*>(out),
+      static_cast<const float*>(dmat), frames, n_blocks, gop_in, gop_out,
+      qs_in_s, qs_out_s, qs_in, qs_out, maxval, dz_intra, dz_inter);
+  err = cudaGetLastError();
+  if (prev != device) {
+    const cudaError_t restore = cudaSetDevice(prev);
+    if (err == cudaSuccess) {
+      err = restore;
+    }
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
 // in/out: int16 (frames, n_blocks, 16, 16) contiguous; dmat: float32 (16, 16)
 // orthonormal DCT-II matrix; all three and `stream` live on CUDA device
 // `device`.  This library links its own CUDA runtime, so it selects
@@ -158,30 +211,26 @@ extern "C" int rbv_transcode_gops(const void* in, void* out, const void* dmat,
                                   int gop_out, float qs_in, float qs_out,
                                   float maxval, float dz_intra,
                                   float dz_inter, int device, void* stream) {
-  if (frames <= 0 || n_blocks <= 0 || gop_in <= 0 || gop_out <= 0) {
+  return launch(in, out, dmat, 1, frames, n_blocks, gop_in, gop_out, nullptr,
+                nullptr, qs_in, qs_out, maxval, dz_intra, dz_inter, device,
+                stream);
+}
+
+// The same for `streams` streams stacked on a leading axis: in/out int16
+// (streams, frames, n_blocks, 16, 16) contiguous; qs_in/qs_out float32
+// (streams,) on the device, one step pair per stream.
+extern "C" int rbv_transcode_gops_batched(
+    const void* in, void* out, const void* dmat, int streams, int frames,
+    int n_blocks, int gop_in, int gop_out, const void* qs_in,
+    const void* qs_out, float maxval, float dz_intra, float dz_inter,
+    int device, void* stream) {
+  if (qs_in == nullptr || qs_out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) {
-    err = cudaSetDevice(device);
-  }
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  transcode_gops_kernel<<<n_blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(in), static_cast<int16_t*>(out),
-      static_cast<const float*>(dmat), frames, n_blocks, gop_in, gop_out,
-      qs_in, qs_out, maxval, dz_intra, dz_inter);
-  err = cudaGetLastError();
-  if (prev != device) {
-    const cudaError_t restore = cudaSetDevice(prev);
-    if (err == cudaSuccess) {
-      err = restore;
-    }
-  }
-  return static_cast<int>(err);
+  return launch(in, out, dmat, streams, frames, n_blocks, gop_in, gop_out,
+                static_cast<const float*>(qs_in),
+                static_cast<const float*>(qs_out), 0.f, 0.f, maxval,
+                dz_intra, dz_inter, device, stream);
 }
 
 extern "C" const char* rbv_cuda_error_string(int err) {

@@ -100,6 +100,15 @@ def _load() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_float,                      # dz_intra, dz_inter
         ctypes.c_int, ctypes.c_void_p,                       # device, stream
     ]
+    lib.rbv_transcode_gops_batched.restype = ctypes.c_int
+    lib.rbv_transcode_gops_batched.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # in, out, dmat
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # streams, frames, n_blocks
+        ctypes.c_int, ctypes.c_int,                          # gop_in, gop_out
+        ctypes.c_void_p, ctypes.c_void_p,                    # qs_in, qs_out (S,)
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,      # maxval, dz_intra, dz_inter
+        ctypes.c_int, ctypes.c_void_p,                       # device, stream
+    ]
     lib.rbv_cuda_error_string.restype = ctypes.c_char_p
     lib.rbv_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

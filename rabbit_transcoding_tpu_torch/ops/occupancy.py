@@ -1,6 +1,6 @@
-"""Occupancy-map scaling: the transcoder's max-pool downscale of
-``rabbit_transcoding_tpu/ops/occupancy.py``, as a torch op over
-(frames, H, W)."""
+"""Occupancy-map scaling: the transcoder's max-pool downscale and the
+nearest-neighbour upsample of ``rabbit_transcoding_tpu/ops/occupancy.py``,
+as torch ops over (frames, H, W)."""
 
 from __future__ import annotations
 
@@ -13,4 +13,10 @@ def downscale_maxpool(occ: torch.Tensor, factor: int) -> torch.Tensor:
     f, h, w = occ.shape
     x = occ.reshape(f, h // factor, factor, w // factor, factor)
     return x.amax(dim=(2, 4))
+
+
+def upsample_nearest(occ: torch.Tensor, factor: int) -> torch.Tensor:
+    """(F, h, w) -> (F, h*f, w*f) nearest-neighbour upsample."""
+    return occ.repeat_interleave(factor, dim=1).repeat_interleave(factor,
+                                                                  dim=2)
 

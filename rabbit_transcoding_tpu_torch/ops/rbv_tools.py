@@ -61,6 +61,19 @@ def scalar(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
+def qstep_for(qstep, x: torch.Tensor) -> torch.Tensor:
+    """A quantiser step as a float32 tensor on ``x``'s device that
+    broadcasts against ``x``.  ``qstep`` is a float (one step for all of
+    ``x``), a 0-d tensor, or a 1-D tensor with one step per item of ``x``'s
+    leading axis (the batched multi-stream path stacks streams of different
+    QPs on that axis)."""
+    if not isinstance(qstep, torch.Tensor):
+        return scalar(qstep, x.device)
+    if qstep.dim() == 0:
+        return qstep
+    return qstep.reshape(-1, *([1] * (x.dim() - 1)))
+
+
 def quantize(c: torch.Tensor, qstep: torch.Tensor, dz: torch.Tensor):
     """sign(c) * floor(|c| / qstep + dz), clipped to +/-32767 (float)."""
     return torch.clamp(
@@ -97,18 +110,18 @@ def reconstruct(pix: torch.Tensor, maxval: float) -> torch.Tensor:
 
 
 # --- deblocking and coefficient threshold ------------------------------------
-def deblock(rec: torch.Tensor, qstep: float, maxval: float,
+def deblock(rec: torch.Tensor, qstep, maxval: float,
             block: int) -> torch.Tensor:
     """In-loop deblocking (``rbv._deblock``): the weak filter on 1 px each
     side of every block boundary, vertical boundaries first, then
     horizontal; rec (..., H, W) float32 -> float32, rounded and clipped.
+    The thresholds are float32 products of the step (``qstep_for``).
     XLA contracts the delta's first product: delta =
     fma(9, q0 - p0, -(3 * (q1 - p1))) / 16."""
-    qs = np.float32(qstep)
-    tc = np.float32(0.25) * qs
-    beta = np.float32(1.5) * qs
-    gate = float(np.float32(10.0) * tc)
-    tc, beta = float(tc), float(beta)
+    qs = qstep_for(qstep, rec)
+    tc = qs * 0.25
+    beta = qs * 1.5
+    gate = tc * 10.0
 
     def filt_v(x: torch.Tensor) -> torch.Tensor:
         *lead, hh, ww = x.shape
@@ -296,10 +309,11 @@ def rate_proxy(q: torch.Tensor) -> torch.Tensor:
     return bits.sum(dim=(-1, -2))
 
 
-def _code_block_residual(res: torch.Tensor, qs: torch.Tensor, block: int,
+def _code_block_residual(res: torch.Tensor, qstep, block: int,
                          thr_k: int) -> torch.Tensor:
     dz = scalar(DZ_INTRA, res.device)
-    q = quantize(dct2d(blockify(res, block)), qs, dz)
+    c = dct2d(blockify(res, block))
+    q = quantize(c, qstep_for(qstep, c), dz)
     if thr_k:
         q = threshold_coeffs(q, block, thr_k)
     # the residual DC is rebuilt from the mosaic, never coded
@@ -309,7 +323,7 @@ def _code_block_residual(res: torch.Tensor, qs: torch.Tensor, block: int,
 
 def _intra_rec(pred_dc, pred_pl, use_pl, mu_hat, q, qstep, maxval, block,
                deblock_on, vmapped):
-    qs = scalar(qstep, q.device)
+    qs = qstep_for(qstep, q)
     pred = torch.where(mosaic_dc(use_pl, block), pred_pl, pred_dc)
     # exact residual-DC rebuild: the block mean of rec equals mu_hat
     means = _prediction_means(mu_hat, pred_pl, use_pl, block, vmapped)
@@ -327,7 +341,7 @@ def intra_code_frame(frame: torch.Tensor, qstep: float, maxval: float,
     B) with the quantised block DC in slot [0, 0], mode uint8 (..., nby,
     nbx): 1 = planar, rec float32 (..., H, W))."""
     h, w = frame.shape[-2:]
-    qs = scalar(qstep, frame.device)
+    qs = qstep_for(qstep, frame)  # the mosaic (..., nby, nbx) has frame's rank
     dz = scalar(DZ_INTRA, frame.device)
     # the DC slot carries what the plain codec would code there (the 2D DCT
     # DC is B * mean)
@@ -335,8 +349,8 @@ def intra_code_frame(frame: torch.Tensor, qstep: float, maxval: float,
     mu_hat = dc_q * (qs / block)
     pred_dc = mosaic_dc(mu_hat, block)
     pred_pl = mosaic_planar(mu_hat, h, w, vmapped)
-    q_dc = _code_block_residual(frame - pred_dc, qs, block, thr_k)
-    q_pl = _code_block_residual(frame - pred_pl, qs, block, thr_k)
+    q_dc = _code_block_residual(frame - pred_dc, qstep, block, thr_k)
+    q_pl = _code_block_residual(frame - pred_pl, qstep, block, thr_k)
     use_pl = rate_proxy(q_pl) < rate_proxy(q_dc)
     q = torch.where(use_pl[..., None, None], q_pl, q_dc)
     rec = _intra_rec(pred_dc, pred_pl, use_pl, mu_hat, q, qstep, maxval,
@@ -352,7 +366,7 @@ def intra_rebuild(q: torch.Tensor, mode: torch.Tensor, qstep: float,
     slot [0, 0], mode (..., nby, nbx) -> rec float32 (..., H, W)."""
     nby, nbx = q.shape[-4], q.shape[-3]
     qf = q.to(torch.float32)
-    mu_hat = qf[..., 0, 0] * (scalar(qstep, q.device) / block)
+    mu_hat = qf[..., 0, 0] * (qstep_for(qstep, mode) / block)
     pred_dc = mosaic_dc(mu_hat, block)
     pred_pl = mosaic_planar(mu_hat, nby * block, nbx * block, vmapped)
     deq = qf.clone()
@@ -419,33 +433,42 @@ def mc_search(frame: torch.Tensor, prev: torch.Tensor, block: int,
 
 
 # --- DCT-domain requantisation -----------------------------------------------
-def requant(q: torch.Tensor, qstep_old: float,
-            qstep_new: float) -> torch.Tensor:
-    """Open-loop rescale: round(q * qstep_old / qstep_new), int16."""
-    dev = q.device
-    c = q.to(torch.float32) * scalar(qstep_old, dev)
-    return torch.clamp(torch.round(c / scalar(qstep_new, dev)), -32767,
+def requant(q: torch.Tensor, qstep_old, qstep_new) -> torch.Tensor:
+    """Open-loop rescale: round(q * qstep_old / qstep_new), int16.  The
+    steps are floats or per-frame tensors (``qstep_for``)."""
+    c = q.to(torch.float32) * qstep_for(qstep_old, q)
+    return torch.clamp(torch.round(c / qstep_for(qstep_new, q)), -32767,
                        32767).to(torch.int16)
 
 
-def requant_compensated(q: torch.Tensor, qstep_old: float, qstep_new: float,
+def requant_compensated(q: torch.Tensor, qstep_old, qstep_new,
                         gop: int) -> torch.Tensor:
     """Drift-compensated requantisation of zero-MV P chains: each frame's
     requantisation error folds into the next frame's target in the
     coefficient domain (``rbv._requant_compensated_impl``); q (F, ...) int16
-    -> int16, GOPs in parallel.  XLA contracts both multiply-adds."""
+    -> int16, GOPs in parallel.  The steps are floats or per-frame (F,)
+    tensors.  XLA contracts both multiply-adds."""
     f = q.shape[0]
     pad = (-f) % gop
     if pad:
         q = torch.cat([q, q.new_zeros((pad,) + q.shape[1:])])
     g = q.reshape((-1, gop) + q.shape[1:]).to(torch.float32)
-    dev = q.device
-    qs_new = scalar(qstep_new, dev)
+
+    def per_gop(qstep):
+        if not isinstance(qstep, torch.Tensor):
+            return [float(np.float32(qstep))] * gop
+        if qstep.dim() == 0:
+            return [qstep] * gop
+        steps = torch.cat([qstep, qstep[-1:].expand(pad)]).reshape(-1, gop)
+        return [qstep_for(steps[:, k], g[:, k]) for k in range(gop)]
+
+    qs_old, qs_new = per_gop(qstep_old), per_gop(qstep_new)
     err = torch.zeros_like(g[:, 0])
     out = []
     for k in range(gop):
-        target = fma(g[:, k], float(np.float32(qstep_old)), err)
-        qn = torch.clamp(torch.round(target / qs_new), -32767, 32767)
-        err = fma(-qn, float(np.float32(qstep_new)), target)
+        target = fma(g[:, k], qs_old[k], err)
+        qn = torch.clamp(torch.round(target / qstep_for(qs_new[k], target)),
+                         -32767, 32767)
+        err = fma(-qn, qs_new[k], target)
         out.append(qn.to(torch.int16))
     return torch.stack(out, 1).reshape((-1,) + q.shape[1:])[:f]

@@ -14,7 +14,10 @@ threshold options, the motion-compensated ``_encode_impl_mc_core``,
 * ``transcode_coeffs``: the wrapper of the branch without MC, intra,
   deblocking or threshold.  A CUDA tensor launches the hand-written Hopper
   kernel (``csrc/transcode_gops.cu``); a CPU tensor takes the plain version.
-  ``LAUNCHES`` counts kernel launches.
+* ``transcode_coeffs_batched`` / ``transcode_coeffs_batched_ref``: the same
+  for S streams of one shape with per-stream steps, one kernel launch for
+  all of them (the batched multi-stream path).
+  ``LAUNCHES`` counts kernel launches, ``BATCHED_LAUNCHES`` the batched ones.
 
 Layout in and out: frame-major ``(F, nby, nbx, B, B)`` (int16 coefficients,
 float32 pixel blocks).  Numerics: fp32, round half to even, a true division
@@ -23,6 +26,7 @@ float32 pixel blocks).  Numerics: fp32, round half to even, a true division
 
 from __future__ import annotations
 
+import math
 import threading
 
 import numpy as np
@@ -31,11 +35,13 @@ import torch
 from . import _build
 from . import rbv_tools as tools
 from .dct import blockify, dct2d, dct_tensor, deblockify, idct2d
-from .rbv_tools import DZ_INTER, DZ_INTRA, quantize, scalar
+from .rbv_tools import DZ_INTER, DZ_INTRA, qstep_for, quantize, scalar
 
-# kernel launches made by transcode_coeffs (read and reset by callers that
-# must show the main path went through the kernel)
+# kernel launches made by transcode_coeffs and transcode_coeffs_batched, and
+# those of the latter alone (read and reset by callers that must show the
+# main path went through the kernel)
 LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 
@@ -55,7 +61,17 @@ def _by_gop(x: torch.Tensor | None, gop: int):
     return x.reshape(-1, gop, *x.shape[1:])
 
 
-def _finish(pix: torch.Tensor, qstep: float, maxval: float,
+def _step_of_frame(qstep, gop: int):
+    """The quantiser steps of the chains' frames: a float for every frame,
+    or a per-frame (F,) tensor -> a function of k giving the steps of frame
+    k of every GOP (a float, or an (n_gops,) tensor)."""
+    if not isinstance(qstep, torch.Tensor):
+        return lambda k: qstep
+    steps = _by_gop(qstep, gop)
+    return lambda k: steps[:, k]
+
+
+def _finish(pix: torch.Tensor, qstep, maxval: float,
             deblock: bool) -> torch.Tensor:
     """Pixel blocks -> the closed-loop recon: rounded, clipped, and with
     deblocking filtered across the block boundaries of each frame."""
@@ -82,7 +98,7 @@ def _predict(prev: torch.Tensor, mv: torch.Tensor | None) -> torch.Tensor:
     return blockify(tools.mc_predict(deblockify(prev), mv, b), b)
 
 
-def decode_chain(coeffs: torch.Tensor, qstep: float, maxval: float,
+def decode_chain(coeffs: torch.Tensor, qstep, maxval: float,
                  gop: int, deblock: bool = False,
                  imode: torch.Tensor | None = None,
                  mv: torch.Tensor | None = None) -> torch.Tensor:
@@ -90,29 +106,31 @@ def decode_chain(coeffs: torch.Tensor, qstep: float, maxval: float,
     each GOP's I frame decodes alone (with ``imode`` (n_gops, nby, nbx)
     through the intra mosaic), each P frame adds to the previous recon,
     moved by ``mv`` (F, nby, nbx) when given; recon = clip(round(.), 0,
-    maxval), then deblocked when ``deblock``."""
+    maxval), then deblocked when ``deblock``.  ``qstep`` is a float or a
+    per-frame (F,) float32 tensor (streams of different QPs stacked on the
+    frame axis, each padded to whole GOPs)."""
     f = coeffs.shape[0]
     b = coeffs.shape[-1]
-    qs = scalar(qstep, coeffs.device)
+    step = _step_of_frame(qstep, gop)
     g = _by_gop(coeffs, gop).to(torch.float32)
     gmv = _by_gop(mv, gop)
     recs = []
     prev = None
     for k in range(gop):
         if k == 0 and imode is not None:
-            rec = tools.intra_rebuild(g[:, 0], imode, qstep, maxval, b,
+            rec = tools.intra_rebuild(g[:, 0], imode, step(0), maxval, b,
                                       deblock, _vmapped(gop, mv is not None))
             prev = blockify(rec, b)
         else:
-            res = idct2d(g[:, k] * qs)
+            res = idct2d(g[:, k] * qstep_for(step(k), g[:, k]))
             if k:
                 res = _predict(prev, None if gmv is None else gmv[:, k]) + res
-            prev = _finish(res, qstep, maxval, deblock)
+            prev = _finish(res, step(k), maxval, deblock)
         recs.append(prev)
     return torch.stack(recs, 1).reshape(-1, *g.shape[2:])[:f]
 
 
-def encode_chain(blocks: torch.Tensor, qstep: float, maxval: float,
+def encode_chain(blocks: torch.Tensor, qstep, maxval: float,
                  gop: int, recon: bool = True, deblock: bool = False,
                  thr_k: int = 0, intra: bool = False,
                  mv: torch.Tensor | None = None, search: bool = False,
@@ -124,15 +142,20 @@ def encode_chain(blocks: torch.Tensor, qstep: float, maxval: float,
     I frames code the pixels (``intra``: through the mosaic predictors), P
     frames the residual against the previous closed-loop recon: as it is,
     moved by the given ``mv``, or moved by a block motion search
-    (``search``; ``weights`` (F, H, W) mask its distortion per pixel).  With
+    (``search``; ``weights`` (F, H, W) mask its distortion per pixel).
+    ``qstep`` is a float or, without ``search``, a per-frame (F,) tensor as
+    in ``decode_chain``.  With
     recon=False only the recons that a later P frame predicts from are
     computed."""
     f = blocks.shape[0]
     b = blocks.shape[-1]
     dev = blocks.device
-    qs = scalar(qstep, dev)
+    step = _step_of_frame(qstep, gop)
     dz_intra, dz_inter = scalar(DZ_INTRA, dev), scalar(DZ_INTER, dev)
-    lam = float(np.float32(qstep) * np.float32(tools.MC_LAMBDA_SCALE))
+    if search and isinstance(qstep, torch.Tensor):
+        raise TypeError("the motion search takes one float quantiser step")
+    lam = (float(np.float32(qstep) * np.float32(tools.MC_LAMBDA_SCALE))
+           if search else 0.0)
     g = _by_gop(blocks.to(torch.float32), gop)
     gmv = _by_gop(mv, gop)
     gw = _by_gop(None if weights is None else weights.to(torch.float32), gop)
@@ -146,7 +169,7 @@ def encode_chain(blocks: torch.Tensor, qstep: float, maxval: float,
                                    device=dev))
         if k == 0 and intra:
             q, mode, rec = tools.intra_code_frame(
-                deblockify(frame), qstep, maxval, b, deblock, thr_k,
+                deblockify(frame), step(0), maxval, b, deblock, thr_k,
                 _vmapped(gop, search or mv is not None))
             q_out.append(q)
             prev = blockify(rec, b)
@@ -163,13 +186,14 @@ def encode_chain(blocks: torch.Tensor, qstep: float, maxval: float,
             pred = _predict(prev, None if gmv is None else gmv[:, k])
             dz = dz_inter
         res = frame if pred is None else frame - pred
+        qs = qstep_for(step(k), res)
         q = quantize(dct2d(res), qs, dz)
         if thr_k:
             q = tools.threshold_coeffs(q, b, thr_k)
         q_out.append(q.to(torch.int16))
         if recon or k + 1 < gop:
             r = idct2d(q * qs)
-            prev = _finish(r if pred is None else pred + r, qstep, maxval,
+            prev = _finish(r if pred is None else pred + r, step(k), maxval,
                            deblock)
             recs.append(prev)
     shape = (-1,) + tuple(g.shape[2:])
@@ -196,6 +220,76 @@ def transcode_coeffs_ref(coeffs: torch.Tensor, qs_in: float, qs_out: float,
                         deblock=deblock, thr_k=thr_k)["q"]
 
 
+def stack_frames(x: torch.Tensor, frames: int) -> torch.Tensor:
+    """(S, F, ...) -> (S * frames, ...): each stream's last frame repeated up
+    to ``frames``, the streams one after the other on the frame axis."""
+    pad = frames - x.shape[1]
+    if pad:
+        x = torch.cat([x, x[:, -1:].expand(-1, pad, *x.shape[2:])], 1)
+    return x.reshape(-1, *x.shape[2:])
+
+
+def transcode_coeffs_batched_ref(coeffs: torch.Tensor, qs_in: torch.Tensor,
+                                 qs_out: torch.Tensor, maxval: float,
+                                 gop_in: int, gop_out: int) -> torch.Tensor:
+    """Plain PyTorch fused transcode of S streams of one shape: int16
+    (S, F, nby, nbx, B, B) coefficients with per-stream steps ``qs_in`` and
+    ``qs_out`` (float32 (S,)) -> int16 of the same shape.  The streams are
+    padded to whole GOPs of both sizes and stacked on the frame axis of one
+    ``transcode_coeffs_ref`` call with per-frame steps."""
+    s, f = coeffs.shape[:2]
+    fp = f + (-f) % math.lcm(gop_in, gop_out)
+    flat = stack_frames(coeffs, fp)
+    out = transcode_coeffs_ref(flat, qs_in.repeat_interleave(fp),
+                               qs_out.repeat_interleave(fp), maxval, gop_in,
+                               gop_out)
+    return out.reshape(s, fp, *coeffs.shape[2:])[:, :f]
+
+
+def _check_kernel_input(coeffs: torch.Tensor, lead: tuple[str, ...],
+                        gop_in: int, gop_out: int) -> None:
+    """Raise unless ``coeffs`` is what the kernel takes: int16
+    (*lead, nby, nbx, 16, 16), contiguous, on a CUDA device."""
+    if coeffs.device.type != "cuda":
+        raise ValueError(f"unsupported device {coeffs.device}")
+    if coeffs.dtype != torch.int16:
+        raise TypeError(f"coefficients must be int16, got {coeffs.dtype}")
+    if coeffs.dim() != len(lead) + 4 or coeffs.shape[-2:] != (16, 16):
+        raise ValueError(
+            f"expected ({', '.join(lead)}, nby, nbx, 16, 16) coefficients, "
+            f"got {tuple(coeffs.shape)}"
+        )
+    if not coeffs.is_contiguous():
+        raise ValueError("coefficients must be contiguous")
+    if gop_in < 1 or gop_out < 1:
+        raise ValueError(f"GOP sizes must be >= 1, got {gop_in}, {gop_out}")
+
+
+def _launch(entry: str, coeffs: torch.Tensor, out: torch.Tensor,
+            *args) -> None:
+    """Launch ``entry`` of the kernel library on ``coeffs`` -> ``out`` (the
+    DCT matrix, then ``args``, then the device index and the current CUDA
+    stream) and count the launch."""
+    lib = _build.library()
+    index = coeffs.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    err = getattr(lib, entry)(
+        coeffs.data_ptr(), out.data_ptr(),
+        dct_tensor(16, coeffs.device).data_ptr(), *args, index,
+        torch.cuda.current_stream(index).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"transcode_gops launch failed: CUDA error {err} "
+            f"({lib.rbv_cuda_error_string(err).decode()})"
+        )
+    global LAUNCHES, BATCHED_LAUNCHES
+    with _launch_lock:
+        LAUNCHES += 1
+        BATCHED_LAUNCHES += entry.endswith("_batched")
+
+
 def transcode_coeffs(coeffs: torch.Tensor, qs_in: float, qs_out: float,
                      maxval: float, gop_in: int,
                      gop_out: int) -> torch.Tensor:
@@ -204,40 +298,37 @@ def transcode_coeffs(coeffs: torch.Tensor, qs_in: float, qs_out: float,
     if coeffs.device.type == "cpu":
         return transcode_coeffs_ref(coeffs, qs_in, qs_out, maxval, gop_in,
                                     gop_out)
-    if coeffs.device.type != "cuda":
-        raise ValueError(f"unsupported device {coeffs.device}")
-    if coeffs.dtype != torch.int16:
-        raise TypeError(f"coefficients must be int16, got {coeffs.dtype}")
-    if coeffs.dim() != 5 or coeffs.shape[-2:] != (16, 16):
-        raise ValueError(
-            f"expected (F, nby, nbx, 16, 16) coefficients, got "
-            f"{tuple(coeffs.shape)}"
-        )
-    if not coeffs.is_contiguous():
-        raise ValueError("coefficients must be contiguous")
-    if gop_in < 1 or gop_out < 1:
-        raise ValueError(f"GOP sizes must be >= 1, got {gop_in}, {gop_out}")
+    _check_kernel_input(coeffs, ("F",), gop_in, gop_out)
     f, nby, nbx = coeffs.shape[:3]
     out = torch.empty_like(coeffs)
-    if out.numel() == 0:
-        return out
-    lib = _build.library()
-    d = dct_tensor(16, coeffs.device)
-    index = coeffs.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
-    err = lib.rbv_transcode_gops(
-        coeffs.data_ptr(), out.data_ptr(), d.data_ptr(), f, nby * nbx,
-        gop_in, gop_out, qs_in, qs_out, maxval, DZ_INTRA, DZ_INTER, index,
-        stream,
-    )
-    if err:
-        raise RuntimeError(
-            f"transcode_gops launch failed: CUDA error {err} "
-            f"({lib.rbv_cuda_error_string(err).decode()})"
-        )
-    global LAUNCHES
-    with _launch_lock:
-        LAUNCHES += 1
+    if out.numel():
+        _launch("rbv_transcode_gops", coeffs, out, f, nby * nbx, gop_in,
+                gop_out, qs_in, qs_out, maxval, DZ_INTRA, DZ_INTER)
+    return out
+
+
+def transcode_coeffs_batched(coeffs: torch.Tensor, qs_in: torch.Tensor,
+                             qs_out: torch.Tensor, maxval: float,
+                             gop_in: int, gop_out: int) -> torch.Tensor:
+    """The fused transcode of ``transcode_coeffs_batched_ref`` on any
+    device: one launch of the Hopper kernel over all S streams for a CUDA
+    tensor (``qs_in``/``qs_out`` float32 (S,) on the same device), the
+    plain version for a CPU tensor."""
+    if coeffs.device.type == "cpu":
+        return transcode_coeffs_batched_ref(coeffs, qs_in, qs_out, maxval,
+                                            gop_in, gop_out)
+    _check_kernel_input(coeffs, ("S", "F"), gop_in, gop_out)
+    s, f, nby, nbx = coeffs.shape[:4]
+    for qs in (qs_in, qs_out):
+        if (qs.dtype != torch.float32 or tuple(qs.shape) != (s,)
+                or qs.device != coeffs.device or not qs.is_contiguous()):
+            raise ValueError(
+                f"per-stream steps must be float32 ({s},) on "
+                f"{coeffs.device}, got {qs.dtype} {tuple(qs.shape)} on "
+                f"{qs.device}")
+    out = torch.empty_like(coeffs)
+    if out.numel():
+        _launch("rbv_transcode_gops_batched", coeffs, out, s, f, nby * nbx,
+                gop_in, gop_out, qs_in.data_ptr(), qs_out.data_ptr(), maxval,
+                DZ_INTRA, DZ_INTER)
     return out

@@ -18,6 +18,16 @@ weights the geometry with the decoded occupancy and the attribute luma with
 the occupied pixels), and mosaic intra I frames.  With ``device=cuda`` the
 lossy encodes run on the GPU, so the full-size stream can be built where JAX
 is not installed.
+
+Variants for the transcoder's other inputs:
+
+* ``lossless=True``: lossless geometry and attribute over the same
+  occupancy (the transcoder background-fills them before quantising);
+* ``map_pair=True``: two maps in per-map sub-streams (GEOMETRY_D0/D1,
+  ATTRIBUTE_T0/T1) with map 1 coded as a biased delta against the
+  reconstructed map 0 (``vps_map_absolute_coding_enabled_flag[1]`` clear);
+* ``with_input_qps``: the same stream with its lossy videos requantised to
+  other QPs, a cheap way to get distinct streams of one shape.
 """
 
 from __future__ import annotations
@@ -25,17 +35,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rabbit_transcoding_tpu.bitstream import V3CWriter, VideoBitstream
+from rabbit_transcoding_tpu.bitstream import (
+    V3CReader,
+    V3CWriter,
+    VideoBitstream,
+)
 from rabbit_transcoding_tpu.bitstream.hls import Context
 from rabbit_transcoding_tpu.bitstream.syntax import (
     AtlasFrameParameterSetRbsp,
     AtlasSequenceParameterSetRbsp,
     V3CParameterSet,
 )
+from rabbit_transcoding_tpu.codec.mapstream import (
+    attr_bias,
+    geo_bias,
+    make_delta,
+)
 from rabbit_transcoding_tpu.core.image import Video
 from rabbit_transcoding_tpu.utils.enums import CodecId, ColorFormat, VideoType
 
-from .video import VideoEncoder, VideoEncoderParams
+from .video import VideoEncoder, VideoEncoderParams, rbv
 
 
 def content(frames: int, width: int, height: int):
@@ -76,7 +95,8 @@ def lossy_params(motion: bool, intra: bool, occ: np.ndarray) -> dict:
 
 def make_stream(frames: int, width: int = 1024, height: int = 1024,
                 device=torch.device("cpu"), motion: bool = False,
-                intra: bool = False) -> bytes:
+                intra: bool = False, lossless: bool = False,
+                map_pair: bool = False) -> bytes:
     """One GOF of ``frames`` frames at ``width`` x ``height`` -> V3C bytes.
     Deterministic (seed 0)."""
     occ, geo, attr_y = content(frames, width, height)
@@ -84,35 +104,83 @@ def make_stream(frames: int, width: int = 1024, height: int = 1024,
     occ_small = occ.reshape(frames, height // p, p, width // p, p).max(
         axis=(2, 4))
     params = lossy_params(motion, intra, occ)
+    if lossless:
+        params = {k: dict(lossless=True) for k in params}
     enc = VideoEncoder.create(CodecId.RBV, device)
     enc_ll = VideoEncoder.create(CodecId.RBV_LOSSLESS, device)
     occ_payload, _ = enc_ll.encode(
         Video(width // p, height // p, 8, ColorFormat.YUV400, [occ_small]),
         VideoEncoderParams(lossless=True),
     )
-    geo_payload, _ = enc.encode(
-        Video(width, height, 10, ColorFormat.YUV400, [geo]),
-        VideoEncoderParams(**params["geometry"]),
-    )
     u = np.full((frames, height // 2, width // 2), 128, np.uint8)
-    attr_payload, _ = enc.encode(
-        Video(width, height, 8, ColorFormat.YUV420, [attr_y, u, u.copy()]),
-        VideoEncoderParams(**params["attribute"]),
-    )
+    geo_video = Video(width, height, 10, ColorFormat.YUV400, [geo])
+    attr_video = Video(width, height, 8, ColorFormat.YUV420,
+                       [attr_y, u, u.copy()])
+    videos = {}
+    if map_pair:
+        # map 1: the far surface layer (geometry a few steps deeper, the
+        # attribute a shade darker), coded against map 0's recon
+        geo1 = np.clip(geo.astype(np.int32) + 3, 0, 1023).astype(np.uint16)
+        attr1_y = np.clip(attr_y.astype(np.int32) - 5, 0, 255).astype(
+            np.uint8)
+        for (t0, t1), video, map1, bias, key in (
+                ((VideoType.GEOMETRY_D0, VideoType.GEOMETRY_D1), geo_video,
+                 [geo1], geo_bias(10), "geometry"),
+                ((VideoType.ATTRIBUTE_T0, VideoType.ATTRIBUTE_T1),
+                 attr_video, [attr1_y, u, u.copy()], attr_bias(8),
+                 "attribute")):
+            vep = VideoEncoderParams(**params[key])
+            videos[t0], rec0 = enc.encode(video, vep)
+            maxv = (1 << video.bitdepth) - 1
+            delta = [make_delta(m1, np.asarray(r0), bias, maxv)
+                     for m1, r0 in zip(map1, rec0.planes)]
+            videos[t1], _ = enc.encode(
+                Video(width, height, video.bitdepth, video.format, delta),
+                vep)
+    else:
+        videos[VideoType.GEOMETRY], _ = enc.encode(
+            geo_video, VideoEncoderParams(**params["geometry"]))
+        videos[VideoType.ATTRIBUTE], _ = enc.encode(
+            attr_video, VideoEncoderParams(**params["attribute"]))
 
     context = Context()
     vps = V3CParameterSet()
-    vps.atlas(0).vps_frame_width = width
-    vps.atlas(0).vps_frame_height = height
+    va = vps.atlas(0)
+    va.vps_frame_width = width
+    va.vps_frame_height = height
+    if map_pair:
+        va.vps_map_count_minus1 = 1
+        va.vps_multiple_map_streams_present_flag = True
+        va.vps_map_absolute_coding_enabled_flag = [True, False]
+        va.vps_map_predictor_index_diff = [0, 0]
     context.vps_list.append(vps)
     atlas = context.atlas(0)
     atlas.asps_list.append(
-        AtlasSequenceParameterSetRbsp(asps_frame_width=width,
-                                      asps_frame_height=height)
+        AtlasSequenceParameterSetRbsp(
+            asps_frame_width=width, asps_frame_height=height,
+            asps_map_count_minus1=1 if map_pair else 0)
     )
     atlas.afps_list.append(AtlasFrameParameterSetRbsp())
     atlas.set_video_bitstream(VideoBitstream(VideoType.OCCUPANCY, occ_payload))
-    atlas.set_video_bitstream(VideoBitstream(VideoType.GEOMETRY, geo_payload))
-    atlas.set_video_bitstream(VideoBitstream(VideoType.ATTRIBUTE, attr_payload))
+    for vt, payload in videos.items():
+        atlas.set_video_bitstream(VideoBitstream(vt, payload))
+    writer = V3CWriter()
+    return writer.write(writer.encode(context))
+
+
+def with_input_qps(data: bytes, geometry_qp: int, attribute_qp: int,
+                   device=torch.device("cpu")) -> bytes:
+    """The first GOF of a V3C stream with its lossy geometry and attribute
+    videos requantised (``rbv.requantize``) to the given QPs -> V3C bytes:
+    a stream of the same shape at another input QP."""
+    reader = V3CReader()
+    context = reader.decode(reader.read(data)[0])
+    atlas = context.atlas(0)
+    for vt, vb in list(atlas.video_bitstreams.items()):
+        if vt == VideoType.OCCUPANCY or rbv.probe(vb.data)["lossless"]:
+            continue
+        qp = geometry_qp if vt.name.startswith("GEOMETRY") else attribute_qp
+        atlas.set_video_bitstream(VideoBitstream(
+            vt, rbv.requantize(vb.data, qp, device=device)))
     writer = V3CWriter()
     return writer.write(writer.encode(context))

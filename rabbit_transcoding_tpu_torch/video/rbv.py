@@ -478,6 +478,23 @@ def requantize(payload: bytes, new_qp: int, zlib_level: int = 6,
     return bytes(out)
 
 
+def transcode_chains(q: torch.Tensor, mv, mode, qs_in, qs_out,
+                     maxval: float, gop: int, gop_out: int, deblock: bool,
+                     intra: bool, thr_k: int):
+    """The plain-chain transcode of coefficients (F, nby, nbx, B, B) with
+    their motion vectors (F, nby, nbx) and intra mode maps (n_gops, nby,
+    nbx), each None when the stream has none -> (int16 coefficients, the
+    re-coded mode maps or None).  The steps are floats, or per-frame
+    tensors when streams are stacked on the frame axis."""
+    if mv is None and not intra:
+        return transcode_coeffs_ref(q, qs_in, qs_out, maxval, gop, gop_out,
+                                    deblock, thr_k), None
+    pixels = decode_chain(q, qs_in, maxval, gop, deblock, mode, mv)
+    coded = encode_chain(pixels, qs_out, maxval, gop_out, recon=False,
+                         deblock=deblock, thr_k=thr_k, intra=intra, mv=mv)
+    return coded["q"], coded["mode"]
+
+
 def _transcode_plane(pl: _Plane, qs_in: float, qs_out: float,
                      maxval: float, gop: int, gop_out: int, deblock: bool,
                      intra: bool, thr_k: int):
@@ -490,15 +507,9 @@ def _transcode_plane(pl: _Plane, qs_in: float, qs_out: float,
         # the branch of the fused kernel
         return transcode_coeffs(pl.q, qs_in, qs_out, maxval, gop,
                                 gop_out), None
-    if pl.mv is None and not intra:
-        return transcode_coeffs_ref(pl.q, qs_in, qs_out, maxval, gop,
-                                    gop_out, deblock, thr_k), None
-    mv = pl.tensor("mv")
-    pixels = decode_chain(pl.q, qs_in, maxval, gop, deblock,
-                          pl.tensor("mode"), mv)
-    coded = encode_chain(pixels, qs_out, maxval, gop_out, recon=False,
-                         deblock=deblock, thr_k=thr_k, intra=intra, mv=mv)
-    return coded["q"], coded["mode"]
+    return transcode_chains(pl.q, pl.tensor("mv"), pl.tensor("mode"), qs_in,
+                            qs_out, maxval, gop, gop_out, deblock, intra,
+                            thr_k)
 
 
 def transcode_payload(

@@ -144,3 +144,108 @@ def test_mc_intra_stream_transcodes_on_the_card_as_on_the_cpu(cuda, mode):
     before = tc.LAUNCHES
     assert run(cuda) == run(torch.device("cpu"))
     assert tc.LAUNCHES == before  # these branches run the plain chains
+
+
+def test_batched_kernel_equals_single_launches_and_plain_version(cuda):
+    # one launch over the stream axis, per-stream steps read on the card:
+    # bit-identical to one single-stream launch per stream
+    rng = np.random.default_rng(4)
+    c = torch.from_numpy(
+        rng.integers(-60, 60, size=(3, 5, 2, 3, 16, 16)).astype(np.int16)
+    ).to(cuda)
+    qps_in, qps_out = (16, 20, 24), (30, 34, 28)
+    qs_in = torch.tensor([_qs(q) for q in qps_in], device=cuda)
+    qs_out = torch.tensor([_qs(q) for q in qps_out], device=cuda)
+    for gop_in, gop_out in ((2, 2), (2, 1), (3, 2)):
+        launches, batched = tc.LAUNCHES, tc.BATCHED_LAUNCHES
+        got = tc.transcode_coeffs_batched(c, qs_in, qs_out, 1023.0, gop_in,
+                                          gop_out)
+        torch.cuda.synchronize()
+        assert tc.LAUNCHES == launches + 1
+        assert tc.BATCHED_LAUNCHES == batched + 1
+        for si in range(3):
+            single = tc.transcode_coeffs(c[si].contiguous(), _qs(qps_in[si]),
+                                         _qs(qps_out[si]), 1023.0, gop_in,
+                                         gop_out)
+            assert torch.equal(got[si], single)
+        want = tc.transcode_coeffs_batched_ref(c, qs_in, qs_out, 1023.0,
+                                               gop_in, gop_out)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), tc.transcode_coeffs_batched_ref(
+            c.cpu(), qs_in.cpu(), qs_out.cpu(), 1023.0, gop_in, gop_out))
+
+
+def test_batched_kernel_rejects_bad_steps(cuda):
+    c = torch.zeros((2, 2, 1, 1, 16, 16), dtype=torch.int16, device=cuda)
+    good = torch.ones(2, device=cuda)
+    for bad in (torch.ones(3, device=cuda), torch.ones(2),
+                torch.ones(2, dtype=torch.float64, device=cuda)):
+        with pytest.raises(ValueError):
+            tc.transcode_coeffs_batched(c, bad, good, 255.0, 1, 1)
+
+
+@pytest.mark.parametrize("kw,launches", [
+    ({}, 4),  # one batched launch per plane for all three streams
+    ({"mode": "requant"}, 0),
+    ({"motion": True, "intra": True}, 0),
+    ({"geometryCoeffThreshold": 6}, 3),  # geometry: the plain chain
+])
+def test_multistream_on_the_card_equals_the_sequential_port(cuda, kw,
+                                                            launches):
+    from rabbit_transcoding_tpu_torch.testdata import (
+        make_stream,
+        with_input_qps,
+    )
+    from rabbit_transcoding_tpu_torch.transcoder import (
+        MultiStreamTranscoder, Transcoder, TranscoderParameters, V3CReader,
+        V3CWriter)
+
+    kw = dict(kw)
+    tools = {k: kw.pop(k) for k in ("motion", "intra") if k in kw}
+    base = make_stream(4, 64, 64, device=cuda, **tools)
+    streams = [base] + [with_input_qps(base, q, q + 6, cuda)
+                        for q in (18, 20)]
+    params = TranscoderParameters(geometryQP=32, attributeQP=42, **kw)
+    reader = V3CReader()
+
+    def write(ctx) -> bytes:
+        writer = V3CWriter()
+        return writer.write(writer.encode(ctx))
+
+    seq = []
+    for data in streams:
+        ctx = reader.decode(reader.read(data)[0])
+        Transcoder(params, cuda).transcode(ctx)
+        seq.append(write(ctx))
+    ctxs = [reader.decode(reader.read(d)[0]) for d in streams]
+    batched = tc.BATCHED_LAUNCHES
+    MultiStreamTranscoder(params, cuda).transcode_many(ctxs)
+    assert [write(c) for c in ctxs] == seq
+    assert tc.BATCHED_LAUNCHES - batched == launches
+
+
+def test_launch_counts_survive_concurrent_launches(cuda):
+    # the batched path launches from one thread per plane: more threads
+    # than host cores, a short switch interval, and no count may be lost
+    import concurrent.futures as cf
+    import sys
+
+    c = torch.zeros((2, 2, 1, 2, 16, 16), dtype=torch.int16, device=cuda)
+    qs = torch.ones(2, device=cuda)
+
+    def launch_both(_):
+        for _ in range(8):
+            tc.transcode_coeffs(c[0], 1.0, 2.0, 255.0, 2, 2)
+            tc.transcode_coeffs_batched(c, qs, qs * 2, 255.0, 2, 2)
+
+    launches, batched = tc.LAUNCHES, tc.BATCHED_LAUNCHES
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with cf.ThreadPoolExecutor(max_workers=32) as ex:
+            list(ex.map(launch_both, range(32), timeout=120))
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES - launches == 32 * 16
+    assert tc.BATCHED_LAUNCHES - batched == 32 * 8

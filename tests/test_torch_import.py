@@ -35,6 +35,15 @@ def test_main_path_modules_import_without_jax():
     )
 
 
+def test_multistream_modules_import_without_jax():
+    _run(
+        "import rabbit_transcoding_tpu_torch.parallel.multistream\n"
+        "import rabbit_transcoding_tpu_torch.transcoder.multistream\n"
+        "import rabbit_transcoding_tpu_torch.apps.stream\n"
+        "import rabbit_transcoding_tpu_torch.ops.dilate\n"
+    )
+
+
 def test_every_module_imports_without_jax():
     _run(
         "import importlib, pkgutil, rabbit_transcoding_tpu_torch as pkg\n"

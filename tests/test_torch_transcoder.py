@@ -111,14 +111,11 @@ def test_app_options_not_ported_raise(option, tmp_path, monkeypatch):
     {"rate_mode": "abr", "targetBitrateMbps": 1.0},
 ])
 def test_modes_not_ported_raise(stream, kw):
+    # both modes are ported now (DCT-domain requantisation, and ABR with its
+    # probes): the same bytes as the reference
     params = TranscoderParameters(**kw)
-    if kw.get("mode") == "requant":
-        # ported: DCT-domain requantisation, as the reference
-        assert (_transcode(stream, Transcoder(params, "cpu"))
-                == _transcode(stream, RefTranscoder(params)))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _transcode(stream, Transcoder(params, "cpu"))
+    assert (_transcode(stream, Transcoder(params, "cpu"))
+            == _transcode(stream, RefTranscoder(params)))
 
 
 def _lossless_geometry_stream(with_occupancy: bool) -> bytes:
@@ -145,10 +142,12 @@ def test_lossless_input_bytes_identical():
 
 
 def test_lossless_input_with_occupancy_raises():
-    # the reference fills the background (push-pull) before re-encoding
+    # ported: the background is filled (push-pull) before re-encoding, as
+    # the reference does
     data = _lossless_geometry_stream(with_occupancy=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _transcode(data, Transcoder(TranscoderParameters(), "cpu"))
+    params = TranscoderParameters()
+    assert (_transcode(data, Transcoder(params, "cpu"))
+            == _transcode(data, RefTranscoder(params)))
 
 
 def test_profile_script_runs_on_cpu(tmp_path, capsys):
