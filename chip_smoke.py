@@ -5,11 +5,16 @@
 
 Phases, one result line each; any failure raises and the exit code is not 0:
 
-1. environment: the card's name and power limit, torch and nvcc versions;
-2. build: nvcc compiles the port's CUDA sources (``csrc/*.cu``);
+1. environment: the card's name and power limit, torch and nvcc versions,
+   and the port's native rANS library (built with g++; without it the
+   entropy coder would fall back to zlib and change what is measured);
+2. build: nvcc compiles the port's CUDA sources (``csrc/*.cu``); ptxas's
+   registers and spills per kernel (no spills allowed);
 3. kernel check: the fused transcode kernel against its plain PyTorch version
    on the card, at the test shapes and at the main path's shapes (geometry
-   luma (32, 64, 64, 16, 16), chroma (32, 32, 32, 16, 16)), with both times;
+   luma (32, 64, 64, 16, 16), chroma (32, 32, 32, 16, 16)), with both times
+   and the kernel's bound (``ops.transcode.transcode_bound_ms``) and share
+   of it;
 4. main path: the 1024x1024, 32-frame benchmark stream (10-bit geometry and
    8-bit YUV420 attribute, lossy RBV at GOP 2; lossless occupancy),
    transcoded to geometry QP 32 / attribute QP 42 in ``reencode`` mode by
@@ -28,7 +33,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
    ``device=cpu`` runs in the same way;
 8. batched kernel: the stream-axis launch over S = 4 luma stacks
    (4, 32, 64, 64, 16, 16) at input QPs 16/18/20/22 against 4 single-stream
-   launches (equal) and against its plain version, with both times;
+   launches (equal) and against its plain version, with both times, the
+   bound and the share;
 9. multi-stream, bench streams: S = 1, 2, 4 streams (the bench stream
    requantised to input QPs 16/18/20/22) through
    ``MultiStreamTranscoder(device=cuda).transcode_many``, one warm-up and 3
@@ -44,9 +50,9 @@ Phases, one result line each; any failure raises and the exit code is not 0:
 12. stream app: ``transcode_streams_sharded`` over 2 streams x 2 GOFs equals
     ``transcode_stream`` on each, with no batched-round failure.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Imports only the port, which imports
-nothing of JAX.
+The kernel table as JSON and the card's name and power limit come before
+the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
+which imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -62,9 +68,11 @@ import numpy as np
 import torch
 
 import rabbit_transcoding_tpu_torch
+from rabbit_transcoding_tpu_torch import native
 from rabbit_transcoding_tpu_torch.ops import _build
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.apps import stream as stream_app
+from rabbit_transcoding_tpu_torch.apps.kernel_ab import median_ms
 from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
 from rabbit_transcoding_tpu_torch.transcoder import (
     ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
@@ -72,18 +80,21 @@ from rabbit_transcoding_tpu_torch.transcoder import (
 )
 from rabbit_transcoding_tpu_torch.video import rbv
 
-# share of differing coefficients and largest |difference| the kernel may
-# show against the plain version (a float rounding-order flip at a .5
-# boundary moves a coefficient by 1)
+# share of differing coefficients and largest |difference| the GPU output
+# may show against the CPU's (a float rounding-order flip at a .5 boundary
+# moves a coefficient by 1), for every path (coefficients and intra
+# mode-map entries; motion vectors pass through or come from the stream and
+# must be equal).  The kernel itself must equal its plain version exactly:
+# both sum in the same order.
 MAX_SHARE = 1e-4
 MAX_DIFF = 1
-# the same bounds for the GPU-against-CPU check of the MC + intra and
-# requant paths (coefficients and intra mode-map entries); their motion
-# vectors pass through or come from the stream and must be equal
 FRAMES, WIDTH, HEIGHT = 32, 1024, 1024
 GEO_QP, ATTR_QP = 32, 42
 KERNEL_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_gops.cu"
 REPLACES = "rabbit_transcoding_tpu/ops/pallas_transcode.py:86"
+# kernel launches per 32-frame GOF of the main path (geometry luma,
+# attribute Y, U, V); the batched path launches as often per round
+LAUNCHES_PER_GOF = 4
 # input QPs (geometry; attribute + 6) of the multi-stream phases' streams
 STREAM_QPS = (16, 18, 20, 22)
 # the reduced size of the CPU runs that the lossless, map-pair and ABR
@@ -113,22 +124,6 @@ def gpu_name_and_power() -> str:
 def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return (d > 0).float().mean().item(), int(d.max().item())
-
-
-def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def stream_planes(data: bytes, device) -> dict:
@@ -263,14 +258,18 @@ def batched_kernel_phase(streams: list[bytes], dev, card) -> dict:
     b_ms = median_ms(lambda: tc.transcode_coeffs_batched(*args))
     s_ms = median_ms(singles)
     p_ms = median_ms(lambda: tc.transcode_coeffs_batched_ref(*args), n=5)
+    bound, by = tc.transcode_bound_ms(tuple(c.shape), 2)
     phase("batched_kernel", shape=tuple(c.shape), input_qps=STREAM_QPS,
           equal_to_single_launches=equal, share=share, max_abs_diff=diff,
           kernel_ms=f"{b_ms:.4f}", single_launches_ms=f"{s_ms:.4f}",
-          plain_ms=f"{p_ms:.4f}", card=repr(card))
+          plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+          bound_share=f"{bound / b_ms:.4f}", card=repr(card))
     check(equal, "batched launch differs from single-stream launches")
-    check(share <= MAX_SHARE and diff <= MAX_DIFF,
+    check(share == 0 and diff == 0,
           f"batched kernel vs plain: share {share}, |diff| {diff}")
-    return {"max_abs_err": diff, "ms": b_ms, "plain_ms": p_ms}
+    return {"max_abs_err": diff, "ms": b_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bound_share": bound / b_ms}
 
 
 def multistream_phase(streams: list[bytes], dev, params, card) -> int:
@@ -428,13 +427,20 @@ def main() -> int:
     ).stdout.strip().splitlines()[-1]
     phase("env", card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, nvcc=repr(nvcc_version),
-          devices=torch.cuda.device_count())
+          devices=torch.cuda.device_count(),
+          native_rans=native.available())
+    check(native.available(), "the native rANS library did not build")
 
     # 2. build from the checkout's sources
     seconds = _build.build(force=True)
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", seconds=f"{seconds:.3f}", ptxas=repr("; ".join(ptxas)))
+    ptxas = _build.ptxas_report(_build.BUILD_LOG)
+    phase("build", seconds=f"{seconds:.3f}", kernels=len(ptxas),
+          registers=[k["registers"] for k in ptxas.values()],
+          spill_stores=[k["spill_stores"] for k in ptxas.values()],
+          spill_loads=[k["spill_loads"] for k in ptxas.values()])
+    check(ptxas and all(k["spill_stores"] == k["spill_loads"] == 0
+                        for k in ptxas.values()),
+          f"ptxas report {ptxas}: a kernel spills")
 
     # the main path's input, built on the card by the port's own encoder
     t0 = time.perf_counter()
@@ -471,13 +477,14 @@ def main() -> int:
         max_abs_err = max(max_abs_err, diff)
         k_ms = median_ms(lambda: tc.transcode_coeffs(*args))
         p_ms = median_ms(lambda: tc.transcode_coeffs_ref(*args))
-        times[name] = (k_ms, p_ms)
+        bound, by = tc.transcode_bound_ms(tuple(c.shape), gop_out)
+        times[name] = (k_ms, p_ms, bound, by)
         phase("kernel", case=name, shape=tuple(c.shape), share=share,
               max_abs_diff=diff, kernel_ms=f"{k_ms:.4f}",
-              plain_ms=f"{p_ms:.4f}", card=repr(card))
-        check(share <= MAX_SHARE and diff <= MAX_DIFF,
-              f"{name}: share {share} > {MAX_SHARE} or |diff| {diff} > "
-              f"{MAX_DIFF}")
+              plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              bound_share=f"{bound / k_ms:.4f}", card=repr(card))
+        check(share == 0 and diff == 0,
+              f"{name}: kernel vs plain: share {share}, |diff| {diff}")
 
     # 4. the main path through the kernel
     params = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
@@ -581,14 +588,18 @@ def main() -> int:
     # 12. the stream app's batched mode
     stream_app_phase(streams, dev, card)
 
-    k_ms, p_ms = times["luma"]
+    # no single PyTorch call computes the fused transcode (library_ms)
+    k_ms, p_ms, bound, by = times["luma"]
     print(json.dumps({"kernels": [{
         "name": "transcode_gops", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "bound_share": bound / k_ms, "launches_per_gof": LAUNCHES_PER_GOF,
     }, {
         "name": "transcode_gops_batched", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES, **batched,
+        "launches_per_gof": LAUNCHES_PER_GOF,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

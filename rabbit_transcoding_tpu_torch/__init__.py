@@ -14,9 +14,15 @@ counterpart is easy to find:
   ops/         DCT, coding tools, push-pull fill, the kernel's wrappers and build
   csrc/        CUDA sources, compiled with nvcc at first use
   testdata.py  the benchmark's synthetic V3C stream and its variants
+  device.py    the entry points' device: the card unless the caller asks for
+               the CPU (no card raises)
 
-Host layers that hold no JAX (bitstream, native rANS, params, hashing) are
-imported from the reference package, never copied.  Nothing here imports
+The host layers are the port's own copies of the reference's, under the same
+relative paths and changed only in their imports: ``bitstream/`` (V3C reader,
+writer, SEI), ``core/`` (``Video``, ``Patch``), ``codec/`` (map-pair deltas,
+patch frames, hash SEI), ``utils/`` (enums, options, timing),
+``transcoder/params.py`` and ``native/`` (the rANS library, built with g++
+into ``build/native/``).  Nothing here imports the reference package,
 ``jax`` or ``triton``, and no CUDA library is loaded at import time.
 """
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import sys
 
-from rabbit_transcoding_tpu.utils.config import OptionRegistry
+from ..utils.config import OptionRegistry
 
 
 def build_registry(params, extra: dict[str, tuple] | None = None) -> OptionRegistry:

@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..testdata import make_stream, with_input_qps
 from ..transcoder import (
     ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
@@ -74,7 +75,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--streams", type=int, default=1)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
+    dev = resolve(args.device)
     lines: list[str] = []
 
     def emit(text: str) -> None:

@@ -37,16 +37,13 @@ import time
 
 import torch
 
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
-from rabbit_transcoding_tpu.bitstream.v3c import (
-    sample_stream_header,
-    write_sample_stream_units,
-)
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
-from rabbit_transcoding_tpu.utils.timing import Stopwatch, print_run_footer
-
+from ..bitstream import V3CReader, V3CWriter
+from ..bitstream.v3c import sample_stream_header, write_sample_stream_units
+from ..device import resolve
 from ..transcoder.multistream import MultiStreamTranscoder
+from ..transcoder.params import TranscoderParameters
 from ..transcoder.transcoder import Transcoder
+from ..utils.timing import Stopwatch, print_run_footer
 from .common import build_registry, parse_or_help
 
 
@@ -288,10 +285,7 @@ def main(argv=None) -> int:
     if not params.compressedStreamPath:
         print("error: --compressedStreamPath is required", file=sys.stderr)
         return 1
-    device = torch.device(reg["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device=cuda but no CUDA device is available "
-                           "(use --device=cpu for the plain versions)")
+    device = resolve(reg["device"])
     inputs = [p for p in params.compressedStreamPath.split(",") if p]
     outputs = (
         [p for p in params.outStreamPath.split(",") if p]

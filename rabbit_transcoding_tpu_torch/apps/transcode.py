@@ -18,17 +18,11 @@ from __future__ import annotations
 import hashlib
 import sys
 
-import torch
-
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
-from rabbit_transcoding_tpu.utils.timing import (
-    Stopwatch,
-    print_run_footer,
-    write_wall_seconds,
-)
-
+from ..bitstream import V3CReader, V3CWriter
+from ..device import resolve
+from ..transcoder.params import TranscoderParameters
 from ..transcoder.transcoder import Transcoder
+from ..utils.timing import Stopwatch, print_run_footer, write_wall_seconds
 from .common import build_registry, parse_or_help
 
 # reference options the port accepts but does not implement yet
@@ -61,10 +55,7 @@ def main(argv=None) -> int:
     if not params.compressedStreamPath:
         print("error: --compressedStreamPath is required", file=sys.stderr)
         return 1
-    device = torch.device(reg["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device=cuda but no CUDA device is available "
-                           "(use --device=cpu for the plain versions)")
+    device = resolve(reg["device"])
 
     sw = Stopwatch()
     sw.start()

@@ -17,153 +17,383 @@
 // Streams.  The batched entry point takes S streams of one shape stacked on
 // a leading axis, (S, frames, n_blocks, 16, 16), with one (qs_in, qs_out)
 // pair per stream in device memory (the batched multi-stream transcode, one
-// launch per plane for the whole group).  Grid (n_blocks, S): each CTA reads
-// its stream's steps once and runs the single-stream body unchanged, so the
-// output equals S single-stream launches bit for bit.
+// launch per plane for the whole group).  Grid y is the stream: each CTA
+// reads its stream's steps once and runs the single-stream body unchanged,
+// so the output equals S single-stream launches bit for bit.
 //
-// Design.  Without motion compensation or deblocking, every 16x16 block
-// position is independent across the whole frame sequence, so the TPU's
-// schedule (one program per (GOP, block row) with the row resident in
-// VMEM) is not carried over.  Instead: one CTA per block position, 256
-// threads, one per pixel; a loop over frames keeps the decode recon and the
-// closed-loop encode recon in registers.  Each thread keeps the four
-// 16-vectors of D its dot products need in registers, and the separable
-// transforms pass through one 16x16 fp32 tile in shared memory (rows of 16
-// floats: the row and column reads below are bank-conflict free).
+// Numerics (the reference's CPU order, bit for bit): every element of every
+// 16-term product sums in four FMA partial sums over k = 0, 1, 2, 3 (mod 4),
+// in k order, combined as (s0 + s1) + (s2 + s3); the left product before
+// the right one (IDCT: D^T C, then .D; DCT: D X, then .D^T); a true IEEE
+// division |c| / qs (__fdiv_rn, never the reciprocal), __fadd_rn for + dz,
+// rintf (round half to even), no contraction of the other products and
+// sums.  Tensor cores (mma.sync, wgmma, 3xTF32) take TF32 operands and add
+// in their own order, so they cannot give these bits: the kernel stays on
+// the fp32 CUDA cores.
 //
-// Bound: not device memory.  Each coefficient crosses it once each way
-// (4 bytes), 128 MiB for a 1024x1024x32-frame plane, ~40 us at 3.35 TB/s.
-// The ~80 FMAs per pixel and frame (two 16-term products per transform,
-// 2.5 transforms per frame at GOP 2) each read one operand from shared
-// memory: ~84 M warp-wide shared loads per such plane, ~0.32 ms at one per
-// clock per SM on 132 SMs.  The kernel takes ~0.54 ms there on an H100, so
-// shared-memory load issue bounds it.  The D vectors live in registers
-// (one shared load per FMA instead of two) and the next frame's
-// coefficient is loaded one iteration ahead.  Register-blocked products or
-// wgmma are later work.
+// Bound.  At the main path's luma plane (32 frames of 64x64 blocks, GOP 2
+// to GOP 2) the 80 transforms per block (32 decode IDCTs, 32 DCTs, 16
+// closed-loop IDCTs) are 2.68 G FMA: 80 us at the 67 TFLOP/s fp32 peak of an
+// H100 SXM.  Device memory (each coefficient read and written once, 134 MB)
+// takes 40 us at 3.35 TB/s.  So fp32 instruction throughput bounds it.
 //
-// Numerics follow the reference: fp32 throughout, rintf (round half to
-// even), a true IEEE division |c| / qs (never the reciprocal), no fast math.
+// Design.  The earlier one (a CTA of 256 threads per block position, one
+// pixel per thread, one shared-memory load per FMA, ten CTA-wide barriers
+// per frame) ran at ~14% of that bound.  Here every FMA takes its D operand
+// as an immediate and its data from a register:
+// * A thread owns one 16-value row of a block: 16 threads per block
+//   position, two block positions per warp, kWarps warps per CTA.  The
+//   frame loop keeps both recons (decode and closed-loop) in registers.
+// * Work units: both chains restart at every multiple of lcm(gop_in,
+//   gop_out), so each block position splits into independent segments of
+//   that many frames (16 per block at GOP 2 over 32 frames).  One unit is
+//   one block over one segment: 16x the warps of one unit per block, which
+//   the card needs to hide latency.
+// * D is a table of hexadecimal float literals (dct() below), the float32
+//   bits of ops/dct.py:dct_matrix(16); the cosines are never recomputed
+//   here.  Every product is fully unrolled, so each FMA carries its D value
+//   as an immediate: no load at all.  (With D as a kernel argument, ptxas
+//   loaded each value with an LDC before its FMA, and those loads held the
+//   kernel at ~20% of the bound.)
+// * A product along the row a thread owns (the right product) is 256 FMAs
+//   on registers.  The left product contracts over the other index, so the
+//   block is transposed first through a per-half-warp shared tile: four
+//   16-byte stores of the thread's row, sixteen 4-byte loads of its
+//   column.  Each transform is transpose -> 256 FMAs -> transpose -> 256
+//   FMAs, ~13 FMAs per shared-memory instruction instead of 1.  Rows of 20
+//   floats and a 16-float offset between the two half-warps' tiles keep
+//   both the stores and the loads free of bank conflicts.  Two tiles are
+//   used in turn, so one __syncwarp per transpose orders them; there is no
+//   CTA-wide barrier.
+// * Global memory: a row of 16 int16 is two 16-byte loads and two 16-byte
+//   stores; the next frame's row is loaded one frame ahead into registers.
+// * The ragged edge: units past the last one compute on zeros and store
+//   nothing (they still take part in __syncwarp); warps wholly past it
+//   return at once.
+// What bounds it now: instruction throughput.  The frame loop holds 2,266
+// instructions, 1,268 of them FFMA (fewer than 3 x 512: ptxas shares equal
+// partial products, e.g. those of D's constant first row); the rest are the
+// 3 adds per output that combine the partial sums, the IEEE division (~10
+// instructions per pixel), rounding, clamps, conversions and the
+// transposes.  The closed-loop IDCT runs every other frame at GOP 2, so
+// ~2,000 instructions per thread and frame against the bound's 1,280 FMAs.  Measured on an H100 80GB HBM3 at 700 W
+// (apps/kernel_ab.py): ~0.16 ms at the main path's luma plane, about half
+// of the FMA bound, 96 registers, no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+#include <mutex>
+
 namespace {
 
 constexpr int kB = 16;
-constexpr int kThreads = kB * kB;
+constexpr int kWarps = 2;                     // warps per CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPositions = 2 * kWarps;        // block positions per CTA
+constexpr int kPad = 20;                      // tile row stride, floats
+constexpr int kTile = kB * kPad;              // 320 floats
+constexpr int kHalfOff = kTile + 16;          // second half-warp: other banks
+constexpr int kBufOff = 2 * kHalfOff;         // the second tile of a pair
+constexpr int kWarpFloats = 2 * kBufOff;      // 1344 floats per warp
 
-// The 16-term sums run in the reference's order (see ops/dct.py): four
-// FMA partial sums over k = 0, 1, 2, 3 (mod 4), combined as
-// (s0 + s1) + (s2 + s3).  The four chains are independent, which also
-// hides the FMA latency.
-
-// out[i][j] = sum_k a[k] * tile[k][j]
-__device__ __forceinline__ float left_product(float (*tile)[kB],
-                                              const float* a, int j) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < kB; ++k) s[k % 4] = fmaf(a[k], tile[k][j], s[k % 4]);
-  return (s[0] + s[1]) + (s[2] + s[3]);
+// D[row][col], the orthonormal DCT-II matrix (rows are the basis
+// functions): the float32 values of ops/dct.py:dct_matrix(16), bit for bit,
+// as exact hexadecimal literals (tests/test_torch_transcode.py holds them
+// against that function; the launch checks them against the caller's
+// matrix once per process).  Called with constant indices only, so every
+// value becomes an FMA's immediate operand.
+__host__ __device__ __forceinline__ float dct(int row, int col) {
+  constexpr float kD[kB * kB] = {
+      0x1p-2f, 0x1p-2f, 0x1p-2f, 0x1p-2f,
+      0x1p-2f, 0x1p-2f, 0x1p-2f, 0x1p-2f,
+      0x1p-2f, 0x1p-2f, 0x1p-2f, 0x1p-2f,
+      0x1p-2f, 0x1p-2f, 0x1p-2f, 0x1p-2f,
+      0x1.684b9cp-2f, 0x1.5a730cp-2f, 0x1.3f4a24p-2f, 0x1.17dc14p-2f,
+      0x1.cb598cp-3f, 0x1.5553e4p-3f, 0x1.a4608ap-4f, 0x1.1be352p-5f,
+      -0x1.1be352p-5f, -0x1.a4608ap-4f, -0x1.5553e4p-3f, -0x1.cb598cp-3f,
+      -0x1.17dc14p-2f, -0x1.3f4a24p-2f, -0x1.5a730cp-2f, -0x1.684b9cp-2f,
+      0x1.63150cp-2f, 0x1.2d062ep-2f, 0x1.92469cp-3f, 0x1.1a855ep-4f,
+      -0x1.1a855ep-4f, -0x1.92469cp-3f, -0x1.2d062ep-2f, -0x1.63150cp-2f,
+      -0x1.63150cp-2f, -0x1.2d062ep-2f, -0x1.92469cp-3f, -0x1.1a855ep-4f,
+      0x1.1a855ep-4f, 0x1.92469cp-3f, 0x1.2d062ep-2f, 0x1.63150cp-2f,
+      0x1.5a730cp-2f, 0x1.cb598cp-3f, 0x1.1be352p-5f, -0x1.5553e4p-3f,
+      -0x1.3f4a24p-2f, -0x1.684b9cp-2f, -0x1.17dc14p-2f, -0x1.a4608ap-4f,
+      0x1.a4608ap-4f, 0x1.17dc14p-2f, 0x1.684b9cp-2f, 0x1.3f4a24p-2f,
+      0x1.5553e4p-3f, -0x1.1be352p-5f, -0x1.cb598cp-3f, -0x1.5a730cp-2f,
+      0x1.4e7aeap-2f, 0x1.1517a8p-3f, -0x1.1517a8p-3f, -0x1.4e7aeap-2f,
+      -0x1.4e7aeap-2f, -0x1.1517a8p-3f, 0x1.1517a8p-3f, 0x1.4e7aeap-2f,
+      0x1.4e7aeap-2f, 0x1.1517a8p-3f, -0x1.1517a8p-3f, -0x1.4e7aeap-2f,
+      -0x1.4e7aeap-2f, -0x1.1517a8p-3f, 0x1.1517a8p-3f, 0x1.4e7aeap-2f,
+      0x1.3f4a24p-2f, 0x1.1be352p-5f, -0x1.17dc14p-2f, -0x1.5a730cp-2f,
+      -0x1.a4608ap-4f, 0x1.cb598cp-3f, 0x1.684b9cp-2f, 0x1.5553e4p-3f,
+      -0x1.5553e4p-3f, -0x1.684b9cp-2f, -0x1.cb598cp-3f, 0x1.a4608ap-4f,
+      0x1.5a730cp-2f, 0x1.17dc14p-2f, -0x1.1be352p-5f, -0x1.3f4a24p-2f,
+      0x1.2d062ep-2f, -0x1.1a855ep-4f, -0x1.63150cp-2f, -0x1.92469cp-3f,
+      0x1.92469cp-3f, 0x1.63150cp-2f, 0x1.1a855ep-4f, -0x1.2d062ep-2f,
+      -0x1.2d062ep-2f, 0x1.1a855ep-4f, 0x1.63150cp-2f, 0x1.92469cp-3f,
+      -0x1.92469cp-3f, -0x1.63150cp-2f, -0x1.1a855ep-4f, 0x1.2d062ep-2f,
+      0x1.17dc14p-2f, -0x1.5553e4p-3f, -0x1.5a730cp-2f, 0x1.1be352p-5f,
+      0x1.684b9cp-2f, 0x1.a4608ap-4f, -0x1.3f4a24p-2f, -0x1.cb598cp-3f,
+      0x1.cb598cp-3f, 0x1.3f4a24p-2f, -0x1.a4608ap-4f, -0x1.684b9cp-2f,
+      -0x1.1be352p-5f, 0x1.5a730cp-2f, 0x1.5553e4p-3f, -0x1.17dc14p-2f,
+      0x1p-2f, -0x1p-2f, -0x1p-2f, 0x1p-2f,
+      0x1p-2f, -0x1p-2f, -0x1p-2f, 0x1p-2f,
+      0x1p-2f, -0x1p-2f, -0x1p-2f, 0x1p-2f,
+      0x1p-2f, -0x1p-2f, -0x1p-2f, 0x1p-2f,
+      0x1.cb598cp-3f, -0x1.3f4a24p-2f, -0x1.a4608ap-4f, 0x1.684b9cp-2f,
+      -0x1.1be352p-5f, -0x1.5a730cp-2f, 0x1.5553e4p-3f, 0x1.17dc14p-2f,
+      -0x1.17dc14p-2f, -0x1.5553e4p-3f, 0x1.5a730cp-2f, 0x1.1be352p-5f,
+      -0x1.684b9cp-2f, 0x1.a4608ap-4f, 0x1.3f4a24p-2f, -0x1.cb598cp-3f,
+      0x1.92469cp-3f, -0x1.63150cp-2f, 0x1.1a855ep-4f, 0x1.2d062ep-2f,
+      -0x1.2d062ep-2f, -0x1.1a855ep-4f, 0x1.63150cp-2f, -0x1.92469cp-3f,
+      -0x1.92469cp-3f, 0x1.63150cp-2f, -0x1.1a855ep-4f, -0x1.2d062ep-2f,
+      0x1.2d062ep-2f, 0x1.1a855ep-4f, -0x1.63150cp-2f, 0x1.92469cp-3f,
+      0x1.5553e4p-3f, -0x1.684b9cp-2f, 0x1.cb598cp-3f, 0x1.a4608ap-4f,
+      -0x1.5a730cp-2f, 0x1.17dc14p-2f, 0x1.1be352p-5f, -0x1.3f4a24p-2f,
+      0x1.3f4a24p-2f, -0x1.1be352p-5f, -0x1.17dc14p-2f, 0x1.5a730cp-2f,
+      -0x1.a4608ap-4f, -0x1.cb598cp-3f, 0x1.684b9cp-2f, -0x1.5553e4p-3f,
+      0x1.1517a8p-3f, -0x1.4e7aeap-2f, 0x1.4e7aeap-2f, -0x1.1517a8p-3f,
+      -0x1.1517a8p-3f, 0x1.4e7aeap-2f, -0x1.4e7aeap-2f, 0x1.1517a8p-3f,
+      0x1.1517a8p-3f, -0x1.4e7aeap-2f, 0x1.4e7aeap-2f, -0x1.1517a8p-3f,
+      -0x1.1517a8p-3f, 0x1.4e7aeap-2f, -0x1.4e7aeap-2f, 0x1.1517a8p-3f,
+      0x1.a4608ap-4f, -0x1.17dc14p-2f, 0x1.684b9cp-2f, -0x1.3f4a24p-2f,
+      0x1.5553e4p-3f, 0x1.1be352p-5f, -0x1.cb598cp-3f, 0x1.5a730cp-2f,
+      -0x1.5a730cp-2f, 0x1.cb598cp-3f, -0x1.1be352p-5f, -0x1.5553e4p-3f,
+      0x1.3f4a24p-2f, -0x1.684b9cp-2f, 0x1.17dc14p-2f, -0x1.a4608ap-4f,
+      0x1.1a855ep-4f, -0x1.92469cp-3f, 0x1.2d062ep-2f, -0x1.63150cp-2f,
+      0x1.63150cp-2f, -0x1.2d062ep-2f, 0x1.92469cp-3f, -0x1.1a855ep-4f,
+      -0x1.1a855ep-4f, 0x1.92469cp-3f, -0x1.2d062ep-2f, 0x1.63150cp-2f,
+      -0x1.63150cp-2f, 0x1.2d062ep-2f, -0x1.92469cp-3f, 0x1.1a855ep-4f,
+      0x1.1be352p-5f, -0x1.a4608ap-4f, 0x1.5553e4p-3f, -0x1.cb598cp-3f,
+      0x1.17dc14p-2f, -0x1.3f4a24p-2f, 0x1.5a730cp-2f, -0x1.684b9cp-2f,
+      0x1.684b9cp-2f, -0x1.5a730cp-2f, 0x1.3f4a24p-2f, -0x1.17dc14p-2f,
+      0x1.cb598cp-3f, -0x1.5553e4p-3f, 0x1.a4608ap-4f, -0x1.1be352p-5f,
+  };
+  return kD[row * kB + col];
 }
 
-// out[i][j] = sum_k tile[i][k] * a[k]
-__device__ __forceinline__ float right_product(float (*tile)[kB],
-                                               const float* a, int i) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
+// out[x] = sum_k D[k][x] v[k]: both products of the IDCT (the left one
+// D^T C on a column of C, the right one T D on a row of T).
+__device__ __forceinline__ void mul_dt(const float (&v)[kB],
+                                       float (&out)[kB]) {
 #pragma unroll
-  for (int k = 0; k < kB; ++k) s[k % 4] = fmaf(tile[i][k], a[k], s[k % 4]);
-  return (s[0] + s[1]) + (s[2] + s[3]);
+  for (int x = 0; x < kB; ++x) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kB; k += 4) {
+      s0 = fmaf(dct(k + 0, x), v[k + 0], s0);
+      s1 = fmaf(dct(k + 1, x), v[k + 1], s1);
+      s2 = fmaf(dct(k + 2, x), v[k + 2], s2);
+      s3 = fmaf(dct(k + 3, x), v[k + 3], s3);
+    }
+    out[x] = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+  }
 }
 
-// Separable transform of the CTA's block, left product with `first`, then
-// right product with `second`.  Every thread passes in its own element and
-// gets its own element of the result back.
-__device__ __forceinline__ float transform2(float (*tile)[kB], float v,
-                                            const float* first,
-                                            const float* second, int i,
-                                            int j) {
-  tile[i][j] = v;
-  __syncthreads();
-  const float t = left_product(tile, first, j);
-  __syncthreads();
-  tile[i][j] = t;
-  __syncthreads();
-  const float out = right_product(tile, second, i);
-  __syncthreads();
-  return out;
+// out[x] = sum_k D[x][k] v[k]: both products of the DCT (the left one D X
+// on a column of X, the right one T D^T on a row of T).
+__device__ __forceinline__ void mul_d(const float (&v)[kB],
+                                      float (&out)[kB]) {
+#pragma unroll
+  for (int x = 0; x < kB; ++x) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kB; k += 4) {
+      s0 = fmaf(dct(x, k + 0), v[k + 0], s0);
+      s1 = fmaf(dct(x, k + 1), v[k + 1], s1);
+      s2 = fmaf(dct(x, k + 2), v[k + 2], s2);
+      s3 = fmaf(dct(x, k + 3), v[k + 3], s3);
+    }
+    out[x] = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+  }
+}
+
+// The 16 threads of a block position hold its 16 rows (thread t: row t,
+// in v).  Afterwards thread t holds column t.  The same call turns columns
+// back into rows.
+__device__ __forceinline__ void transpose(float* tile, float (&v)[kB],
+                                          int t) {
+  float4* row = reinterpret_cast<float4*>(tile + t * kPad);
+#pragma unroll
+  for (int c = 0; c < kB / 4; ++c) {
+    row[c] = make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kB; ++k) v[k] = tile[k * kPad + t];
 }
 
 __device__ __forceinline__ float clip_round(float x, float maxval) {
   return fminf(fmaxf(rintf(x), 0.f), maxval);
 }
 
+// clamp(sign(c) * floor(|c| / qs + dz), -32767, 32767): floor(...) >= 0,
+// so it is clamped above and then takes c's sign (a -0 never changes a
+// later sum, which starts from +0).  c = 0 gives floor(dz) = 0 without the
+// division: a zero dividend sends __fdiv_rn down its slow path, and exact
+// zeros are common (flat blocks, P-frame residuals of static content).
 __device__ __forceinline__ float quantize(float c, float qs, float dz) {
-  const float s = (c > 0.f) ? 1.f : ((c < 0.f) ? -1.f : 0.f);
-  const float v = s * floorf(__fadd_rn(__fdiv_rn(fabsf(c), qs), dz));
-  return fminf(fmaxf(v, -32767.f), 32767.f);
+  const float a = fabsf(c);
+  const float q = __fdiv_rn(a != 0.f ? a : qs, qs);
+  const float m = a != 0.f ? floorf(__fadd_rn(q, dz)) : 0.f;
+  return copysignf(fminf(m, 32767.f), c);
 }
 
+__device__ __forceinline__ void unpack(uint4 lo, uint4 hi, float qs,
+                                       float (&v)[kB]) {
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[2 * i] = __fmul_rn(static_cast<float>(static_cast<int16_t>(w[i])), qs);
+    v[2 * i + 1] =
+        __fmul_rn(static_cast<float>(static_cast<int16_t>(w[i] >> 16)), qs);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  return (static_cast<uint32_t>(__float2int_rn(a)) & 0xffffu) |
+         (static_cast<uint32_t>(__float2int_rn(b)) << 16);
+}
+
+// One unit of work is one block position over one segment of seg_len
+// frames: both chains restart at every multiple of lcm(gop_in, gop_out), so
+// the segments are independent (16 per block position at GOP 2 over 32
+// frames), which gives the card 16x more warps than one per block.  Units
+// run block-major within a segment, so a warp's two half-warps read
+// neighbouring blocks.  Every thread runs seg_len iterations (a frame past
+// the end, or a unit past n_units, computes on zeros and stores nothing),
+// so the warp's __syncwarp calls always match.
 // qs_in_s / qs_out_s: per-stream steps (S,) in device memory, or null for
 // one stream at the scalar steps qs_in / qs_out.
 __global__ void __launch_bounds__(kThreads)
 transcode_gops_kernel(const int16_t* __restrict__ in,
-                      int16_t* __restrict__ out,
-                      const float* __restrict__ dmat, int frames,
-                      int n_blocks, int gop_in, int gop_out,
+                      int16_t* __restrict__ out, int frames, int n_blocks,
+                      int64_t n_units, int seg_len, int gop_in, int gop_out,
                       const float* __restrict__ qs_in_s,
                       const float* __restrict__ qs_out_s, float qs_in,
                       float qs_out, float maxval, float dz_intra,
                       float dz_inter) {
-  __shared__ float tile[kB][kB];
+  __shared__ __align__(16) float smem[kWarps * kWarpFloats];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = lane & 15;
+  const int half = lane >> 4;
+  const int64_t unit0 =
+      static_cast<int64_t>(blockIdx.x) * kPositions + 2 * warp;
+  if (unit0 >= n_units) return;  // the whole warp is past the edge
+  const int64_t unit = unit0 + half;
+  const bool in_range = unit < n_units;
+  const int64_t block = in_range ? unit % n_blocks : 0;
+  const int first = in_range ? static_cast<int>(unit / n_blocks) * seg_len
+                             : frames;  // the segment's first frame
   if (qs_in_s != nullptr) {
     qs_in = qs_in_s[blockIdx.y];
     qs_out = qs_out_s[blockIdx.y];
   }
-  const int i = threadIdx.x / kB;
-  const int j = threadIdx.x % kB;
-  // IDCT = D^T C D: left with column i of D, right with column j.
-  // DCT  = D X D^T: left with row i of D, right with row j.
-  float col_i[kB], col_j[kB], row_i[kB], row_j[kB];
-#pragma unroll
-  for (int k = 0; k < kB; ++k) {
-    col_i[k] = dmat[k * kB + i];
-    col_j[k] = dmat[k * kB + j];
-    row_i[k] = dmat[i * kB + k];
-    row_j[k] = dmat[j * kB + k];
+  float* tile_a = smem + warp * kWarpFloats + half * kHalfOff;
+  float* tile_b = tile_a + kBufOff;
+
+  const int64_t frame_stride = static_cast<int64_t>(n_blocks) * kB * kB;
+  const int64_t base =
+      (static_cast<int64_t>(blockIdx.y) * frames + (in_range ? first : 0)) *
+          frame_stride +
+      block * kB * kB + t * kB;
+  const uint4* src = reinterpret_cast<const uint4*>(in + base);
+  uint4* dst = reinterpret_cast<uint4*>(out + base);
+  const int64_t step = frame_stride / 8;  // uint4 per frame
+
+  uint4 next_lo = make_uint4(0, 0, 0, 0), next_hi = next_lo;
+  if (first < frames) {
+    next_lo = src[0];
+    next_hi = src[1];
   }
-  const int64_t frame_stride = static_cast<int64_t>(n_blocks) * kThreads;
-  int64_t off = static_cast<int64_t>(blockIdx.y) * frames * frame_stride +
-                static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  float dec_prev = 0.f;
-  float enc_prev = 0.f;
-  int16_t next = in[off];
-  for (int f = 0; f < frames; ++f, off += frame_stride) {
-    const int16_t cur = next;
-    if (f + 1 < frames) next = in[off + frame_stride];
-    // decode at qs_in and rebuild the input's I/P chain
-    const bool dec_intra = (f % gop_in) == 0;
-    const float res = transform2(tile, static_cast<float>(cur) * qs_in,
-                                 col_i, col_j, i, j);
-    const float pix = clip_round(dec_intra ? res : dec_prev + res, maxval);
-    dec_prev = pix;
+  float dec_prev[kB], enc_prev[kB];
+#pragma unroll
+  for (int k = 0; k < kB; ++k) dec_prev[k] = enc_prev[k] = 0.f;
+
+  // f % gop_in and f % gop_out, kept as counters (a segment starts at a
+  // multiple of both GOPs)
+  int dec_phase = 0, enc_phase = 0;
+  for (int f = 0; f < seg_len; ++f, src += step, dst += step) {
+    float v[kB], u[kB];
+    unpack(next_lo, next_hi, qs_in, v);
+    const bool active = first + f < frames;  // this frame exists
+    if (first + f + 1 < frames && f + 1 < seg_len) {
+      next_lo = src[step];
+      next_hi = src[step + 1];
+    }
+    // decode at qs_in: IDCT of row t, then the input's I/P chain
+    transpose(tile_a, v, t);  // column t of C
+    mul_dt(v, u);             // column t of D^T C
+    transpose(tile_b, u, t);  // row t of D^T C
+    mul_dt(u, v);             // row t of D^T C D
+    const bool dec_intra = dec_phase == 0;
+    const bool enc_intra = enc_phase == 0;
+    if (++dec_phase == gop_in) dec_phase = 0;
+    if (++enc_phase == gop_out) enc_phase = 0;
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      dec_prev[k] =
+          clip_round(dec_intra ? v[k] : __fadd_rn(dec_prev[k], v[k]), maxval);
+      v[k] = enc_intra ? dec_prev[k] : __fsub_rn(dec_prev[k], enc_prev[k]);
+    }
     // re-encode at qs_out against the closed-loop recon
-    const bool enc_intra = (f % gop_out) == 0;
-    const float target = enc_intra ? pix : pix - enc_prev;
-    const float y = transform2(tile, target, row_i, row_j, i, j);
-    const float q = quantize(y, qs_out, enc_intra ? dz_intra : dz_inter);
-    out[off] = static_cast<int16_t>(__float2int_rn(q));
+    transpose(tile_a, v, t);  // column t of X
+    mul_d(v, u);              // column t of D X
+    transpose(tile_b, u, t);  // row t of D X
+    mul_d(u, v);              // row t of D X D^T
+    const float dz = enc_intra ? dz_intra : dz_inter;
+#pragma unroll
+    for (int k = 0; k < kB; ++k) v[k] = quantize(v[k], qs_out, dz);
+    if (active) {
+      dst[0] = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                          pack2(v[4], v[5]), pack2(v[6], v[7]));
+      dst[1] = make_uint4(pack2(v[8], v[9]), pack2(v[10], v[11]),
+                          pack2(v[12], v[13]), pack2(v[14], v[15]));
+    }
     // the next frame predicts from this recon only inside the output GOP
-    if ((f + 1) % gop_out != 0 && f + 1 < frames) {
-      const float r = transform2(tile, q * qs_out, col_i, col_j, i, j);
-      enc_prev = clip_round(enc_intra ? r : enc_prev + r, maxval);
+    if (enc_phase != 0 && f + 1 < seg_len) {
+#pragma unroll
+      for (int k = 0; k < kB; ++k) v[k] = __fmul_rn(v[k], qs_out);
+      transpose(tile_a, v, t);
+      mul_dt(v, u);
+      transpose(tile_b, u, t);
+      mul_dt(u, v);
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        enc_prev[k] = clip_round(
+            enc_intra ? v[k] : __fadd_rn(enc_prev[k], v[k]), maxval);
+      }
     }
   }
 }
 
-}  // namespace
+// The first launch of the process holds the caller's float32 matrix (on
+// the device) against the kernel's literals, bit for bit.  The package has
+// one DCT matrix (ops/dct.py:dct_tensor(16)), the same on every device.
+std::mutex dct_mutex;
+bool dct_checked = false;
 
-namespace {
+cudaError_t check_dct(const void* dmat, cudaStream_t stream) {
+  std::lock_guard<std::mutex> lock(dct_mutex);
+  if (!dct_checked) {
+    float host[kB * kB];
+    cudaError_t err = cudaMemcpyAsync(host, dmat, sizeof(host),
+                                      cudaMemcpyDeviceToHost, stream);
+    if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < kB * kB; ++i) {
+      const float want = dct(i / kB, i % kB);
+      if (std::memcmp(&host[i], &want, sizeof(float)) != 0) {
+        return cudaErrorInvalidValue;
+      }
+    }
+    dct_checked = true;
+  }
+  return cudaSuccess;
+}
 
 // Selects `device`, launches on `stream`, restores the caller's device.
 int launch(const void* in, void* out, const void* dmat, int streams,
@@ -175,6 +405,24 @@ int launch(const void* in, void* out, const void* dmat, int streams,
       gop_in <= 0 || gop_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // both chains restart every lcm(gop_in, gop_out) frames
+  int64_t gcd = gop_in;
+  for (int64_t b = gop_out; b != 0;) {
+    const int64_t r = gcd % b;
+    gcd = b;
+    b = r;
+  }
+  int64_t seg_len = gop_in / gcd * gop_out;
+  if (seg_len > frames) seg_len = frames;
+  const int64_t n_units =
+      static_cast<int64_t>(n_blocks) * ((frames + seg_len - 1) / seg_len);
+  if ((n_units + kPositions - 1) / kPositions > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) %
+          16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) {
@@ -183,12 +431,19 @@ int launch(const void* in, void* out, const void* dmat, int streams,
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  transcode_gops_kernel<<<dim3(n_blocks, streams), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(in), static_cast<int16_t*>(out),
-      static_cast<const float*>(dmat), frames, n_blocks, gop_in, gop_out,
-      qs_in_s, qs_out_s, qs_in, qs_out, maxval, dz_intra, dz_inter);
-  err = cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = check_dct(dmat, s);
+  if (err == cudaSuccess) {
+    const dim3 grid(
+        static_cast<unsigned>((n_units + kPositions - 1) / kPositions),
+        streams);
+    transcode_gops_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const int16_t*>(in), static_cast<int16_t*>(out), frames,
+        n_blocks, n_units, static_cast<int>(seg_len), gop_in, gop_out,
+        qs_in_s, qs_out_s, qs_in, qs_out, maxval, dz_intra,
+        dz_inter);
+    err = cudaGetLastError();
+  }
   if (prev != device) {
     const cudaError_t restore = cudaSetDevice(prev);
     if (err == cudaSuccess) {
@@ -200,12 +455,13 @@ int launch(const void* in, void* out, const void* dmat, int streams,
 
 }  // namespace
 
-// in/out: int16 (frames, n_blocks, 16, 16) contiguous; dmat: float32 (16, 16)
-// orthonormal DCT-II matrix; all three and `stream` live on CUDA device
-// `device`.  This library links its own CUDA runtime, so it selects
-// `device` for the launch itself and then restores the thread's current
-// device (which the caller's runtime shares).  Launches on `stream` and
-// returns the cudaError_t (0 on success); never synchronises.
+// in/out: int16 (frames, n_blocks, 16, 16) contiguous and 16-byte aligned;
+// dmat: float32 (16, 16) orthonormal DCT-II matrix; all three and `stream`
+// live on CUDA device `device`.  This library links its own CUDA runtime,
+// so it selects `device` for the launch itself and then restores the
+// thread's current device (which the caller's runtime shares).  Launches on
+// `stream` and returns the cudaError_t (0 on success); never synchronises,
+// except that the process's first launch copies dmat to the host.
 extern "C" int rbv_transcode_gops(const void* in, void* out, const void* dmat,
                                   int frames, int n_blocks, int gop_in,
                                   int gop_out, float qs_in, float qs_out,

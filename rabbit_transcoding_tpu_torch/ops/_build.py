@@ -58,20 +58,47 @@ def build(force: bool = False) -> float:
     in ``BUILD_LOG``."""
     if not force and not _stale():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    return compile_library(sources(), LIBRARY, BUILD_LOG)
+
+
+def compile_library(srcs, library: Path, log: Path) -> float:
+    """nvcc ``srcs`` into the shared library ``library`` -> seconds spent;
+    nvcc's output goes to ``log``.  Raises when nvcc fails."""
+    library.parent.mkdir(parents=True, exist_ok=True)
+    tmp = library.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return seconds
+
+
+def ptxas_report(log: Path) -> dict:
+    """{kernel name: {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes}} from the ``-Xptxas -v`` lines of a build log."""
+    import re
+
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 _lock = threading.Lock()
@@ -90,7 +117,12 @@ def library() -> ctypes.CDLL:
 
 
 def _load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(LIBRARY))
+    return bind(ctypes.CDLL(str(LIBRARY)))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a kernel library on ``lib`` (also used
+    for a library built from another version of the sources)."""
     lib.rbv_transcode_gops.restype = ctypes.c_int
     lib.rbv_transcode_gops.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # in, out, dmat

@@ -246,10 +246,35 @@ def transcode_coeffs_batched_ref(coeffs: torch.Tensor, qs_in: torch.Tensor,
     return out.reshape(s, fp, *coeffs.shape[2:])[:, :f]
 
 
+# published peaks of one H100 SXM at its 700 W limit: fp32 outside the
+# tensor cores, and device memory
+H100_FP32_FLOPS = 67e12
+H100_BYTES_PER_S = 3.35e12
+
+
+def transcode_bound_ms(shape: tuple, gop_out: int) -> tuple[float, str]:
+    """The least time an H100 could take for the fused transcode of int16
+    coefficients of ``shape`` ((S,) F, nby, nbx, 16, 16) -> (ms, "operations"
+    or "bytes").  Operations: the FMAs of the transforms this input needs,
+    2 x 16^3 per transform and block (one IDCT and one DCT per frame, one
+    closed-loop IDCT per frame that a later frame of its output GOP
+    predicts from), 2 FLOP each; bytes: each coefficient read once and
+    written once."""
+    f, nby, nbx = shape[-5:-2]
+    blocks = math.prod(shape[:-5]) * nby * nbx
+    recons = sum(1 for i in range(f - 1) if (i + 1) % gop_out)
+    flops = blocks * (2 * f + recons) * 2 * 16 ** 3 * 2
+    byte_ms = 2 * 2 * math.prod(shape) / H100_BYTES_PER_S * 1e3
+    flop_ms = flops / H100_FP32_FLOPS * 1e3
+    return (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms,
+                                                               "bytes")
+
+
 def _check_kernel_input(coeffs: torch.Tensor, lead: tuple[str, ...],
                         gop_in: int, gop_out: int) -> None:
     """Raise unless ``coeffs`` is what the kernel takes: int16
-    (*lead, nby, nbx, 16, 16), contiguous, on a CUDA device."""
+    (*lead, nby, nbx, 16, 16), contiguous, 16-byte aligned (the kernel moves
+    rows in 16-byte accesses), on a CUDA device."""
     if coeffs.device.type != "cuda":
         raise ValueError(f"unsupported device {coeffs.device}")
     if coeffs.dtype != torch.int16:
@@ -261,6 +286,9 @@ def _check_kernel_input(coeffs: torch.Tensor, lead: tuple[str, ...],
         )
     if not coeffs.is_contiguous():
         raise ValueError("coefficients must be contiguous")
+    if coeffs.data_ptr() % 16:
+        raise ValueError("coefficients must start at a 16-byte aligned "
+                         "address")
     if gop_in < 1 or gop_out < 1:
         raise ValueError(f"GOP sizes must be >= 1, got {gop_in}, {gop_out}")
 

@@ -29,10 +29,10 @@ import struct
 
 import torch
 
-from rabbit_transcoding_tpu.utils.enums import ColorFormat
-
-from ..ops.transcode import stack_frames, transcode_coeffs_batched
+from ..device import resolve
 from ..ops import rbv_tools as tools
+from ..ops.transcode import stack_frames, transcode_coeffs_batched
+from ..utils.enums import ColorFormat
 from ..video import rbv
 from ..video.rbv import (
     _HEADER,
@@ -68,7 +68,7 @@ def _pool(n: int) -> cf.ThreadPoolExecutor:
 def transcode_payloads(
     payloads: list[bytes],
     new_qp: int | list[int],
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     new_gop: int | None = None,
     zlib_level: int = 6,
     mode: str = "reencode",
@@ -79,8 +79,9 @@ def transcode_payloads(
     payloads defer to the sequential functions; a no-op requantisation
     passes through.  ``mode="requant"`` requantises in the DCT domain
     instead of the fused decode -> re-encode; ``coeff_threshold`` thresholds
-    every re-encode."""
-    device = torch.device(device)
+    every re-encode.  ``device`` is the card unless the caller asks for
+    the CPU; no card raises."""
+    device = resolve(device)
     n = len(payloads)
     qps = [new_qp] * n if isinstance(new_qp, int) else list(new_qp)
     if len(qps) != n:

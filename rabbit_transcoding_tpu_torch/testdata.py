@@ -35,25 +35,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rabbit_transcoding_tpu.bitstream import (
-    V3CReader,
-    V3CWriter,
-    VideoBitstream,
-)
-from rabbit_transcoding_tpu.bitstream.hls import Context
-from rabbit_transcoding_tpu.bitstream.syntax import (
+from .bitstream import V3CReader, V3CWriter, VideoBitstream
+from .bitstream.hls import Context
+from .bitstream.syntax import (
     AtlasFrameParameterSetRbsp,
     AtlasSequenceParameterSetRbsp,
     V3CParameterSet,
 )
-from rabbit_transcoding_tpu.codec.mapstream import (
-    attr_bias,
-    geo_bias,
-    make_delta,
-)
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.utils.enums import CodecId, ColorFormat, VideoType
-
+from .codec.mapstream import attr_bias, geo_bias, make_delta
+from .core.image import Video
+from .utils.enums import CodecId, ColorFormat, VideoType
 from .video import VideoEncoder, VideoEncoderParams, rbv
 
 

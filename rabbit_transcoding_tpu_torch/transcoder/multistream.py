@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import torch
 
-from rabbit_transcoding_tpu.bitstream.hls import Context
-from rabbit_transcoding_tpu.bitstream.video_bitstream import VideoBitstream
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
-from rabbit_transcoding_tpu.utils.enums import VideoType
-from rabbit_transcoding_tpu.utils.timing import StageTimer
-
+from ..bitstream.hls import Context
+from ..bitstream.video_bitstream import VideoBitstream
+from ..device import resolve
 from ..parallel.multistream import transcode_payloads
+from ..utils.enums import VideoType
+from ..utils.timing import StageTimer
 from ..video import rbv
+from .params import TranscoderParameters
 from .transcoder import _GEO_TYPES, Transcoder, has_lossless_video
 
 _GEO_FAMILY = (VideoType.GEOMETRY, VideoType.GEOMETRY_D0,
@@ -38,9 +38,9 @@ _ATTR_FAMILY = (VideoType.ATTRIBUTE, VideoType.ATTRIBUTE_T0,
 
 class MultiStreamTranscoder:
     def __init__(self, params: TranscoderParameters | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.params = params or TranscoderParameters()
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.timer = StageTimer()
         # one Transcoder per stream: per-stream state (the ABR QP cache) and
         # every non-batched stage

@@ -7,7 +7,8 @@ domain) each RBV video component at new rate points without re-running
 segmentation or packing, optionally downscale the occupancy map, refresh the
 hash SEI, and leave all other atlas metadata intact for remux.
 
-* Lossy planes transcode on ``device``: a stream without MC, intra,
+* Lossy planes transcode on ``device`` (the card unless the caller asks
+  for the CPU; no card raises): a stream without MC, intra,
   deblocking or threshold through the hand-written Hopper kernel on a CUDA
   device, every other one through the plain PyTorch chains on the same
   device.
@@ -20,7 +21,8 @@ hash SEI, and leave all other atlas metadata intact for remux.
   the probes are the transcodes themselves, and the chosen QPs are cached
   per ``Transcoder`` across GOFs.
 
-Parameters are the reference's ``TranscoderParameters``, unchanged.  Foreign
+Parameters are the reference's ``TranscoderParameters`` (the port's copy,
+``transcoder/params.py``), unchanged.  Foreign
 (Annex-B) video raises ``NotImplementedError`` naming the ROADMAP item that
 will port it.
 """
@@ -30,25 +32,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rabbit_transcoding_tpu.bitstream.hls import Context
-from rabbit_transcoding_tpu.bitstream.sei import SeiDecodedAtlasInformationHash
-from rabbit_transcoding_tpu.bitstream.video_bitstream import VideoBitstream
-from rabbit_transcoding_tpu.codec.hash import create_hash_sei
-from rabbit_transcoding_tpu.codec.mapstream import (
-    attr_bias,
-    combine_map1,
-    geo_bias,
-    make_delta,
-)
-from rabbit_transcoding_tpu.codec.patch_frame import decode_patch_frames
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
-from rabbit_transcoding_tpu.utils.enums import CodecId, ColorFormat, VideoType
-from rabbit_transcoding_tpu.utils.timing import StageTimer
-
+from ..bitstream.hls import Context
+from ..bitstream.sei import SeiDecodedAtlasInformationHash
+from ..bitstream.video_bitstream import VideoBitstream
+from ..codec.hash import create_hash_sei
+from ..codec.mapstream import attr_bias, combine_map1, geo_bias, make_delta
+from ..codec.patch_frame import decode_patch_frames
+from ..core.image import Video
+from ..device import resolve
 from ..ops.dilate import pad_pow2, push_pull_fill
 from ..ops.occupancy import downscale_maxpool, upsample_nearest
+from ..utils.enums import CodecId, ColorFormat, VideoType
+from ..utils.timing import StageTimer
 from ..video import VideoDecoder, VideoEncoder, VideoEncoderParams, rbv
+from .params import TranscoderParameters
 
 PIXEL_VIDEO_TYPES = (
     VideoType.GEOMETRY, VideoType.ATTRIBUTE, VideoType.GEOMETRY_D0,
@@ -80,9 +77,9 @@ def has_lossless_video(atlas) -> bool:
 
 class Transcoder:
     def __init__(self, params: TranscoderParameters | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.params = params or TranscoderParameters()
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.timer = StageTimer()
         # ABR: {"<family>:<stream>": (chosen QP, produced bytes)} across GOFs
         self._rc_cache: dict[str, tuple[int, int]] = {}

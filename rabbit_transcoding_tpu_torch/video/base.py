@@ -1,7 +1,8 @@
 """Video codec factory: the RBV / RBV_LOSSLESS slice of the reference's
 ``rabbit_transcoding_tpu/video/base.py``.
 
-Pipelines request a codec by ``CodecId`` and a ``torch.device``.  External
+Pipelines request a codec by ``CodecId`` and a ``torch.device``: the card
+unless the caller asks for the CPU (no card raises).  External
 app codecs (HM, JM, SHM, VTM, ffmpeg) are not ported yet.
 """
 
@@ -11,9 +12,9 @@ import dataclasses
 
 import torch
 
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.utils.enums import CodecId
-
+from ..core.image import Video
+from ..device import resolve
+from ..utils.enums import CodecId
 from . import rbv
 
 
@@ -53,7 +54,7 @@ class VideoEncoder:
 
     @staticmethod
     def create(codec_id: CodecId,
-               device=torch.device("cpu")) -> "VideoEncoder":
+               device: torch.device | str = "cuda") -> "VideoEncoder":
         _check_rbv(codec_id)
         return RbvVideoEncoder(codec_id == CodecId.RBV_LOSSLESS, device)
 
@@ -65,16 +66,16 @@ class VideoDecoder:
 
     @staticmethod
     def create(codec_id: CodecId,
-               device=torch.device("cpu")) -> "VideoDecoder":
+               device: torch.device | str = "cuda") -> "VideoDecoder":
         _check_rbv(codec_id)
         return RbvVideoDecoder(device)
 
 
 class RbvVideoEncoder(VideoEncoder):
     def __init__(self, force_lossless: bool = False,
-                 device=torch.device("cpu")) -> None:
+                 device: torch.device | str = "cuda") -> None:
         self.force_lossless = force_lossless
-        self.device = device
+        self.device = resolve(device)
 
     def encode(self, video: Video,
                params: VideoEncoderParams) -> tuple[bytes, Video]:
@@ -92,8 +93,8 @@ class RbvVideoEncoder(VideoEncoder):
 
 
 class RbvVideoDecoder(VideoDecoder):
-    def __init__(self, device=torch.device("cpu")) -> None:
-        self.device = device
+    def __init__(self, device: torch.device | str = "cuda") -> None:
+        self.device = resolve(device)
 
     def decode(self, payload: bytes,
                output_bitdepth: int | None = None) -> Video:

@@ -7,10 +7,11 @@ encoder's coefficient threshold and MC search weights, ``encode``,
 payload format is the reference's (container v2, blob mode 3): both packages
 read each other's streams, and on the CPU they write the same bytes.
 
-* Host: entropy coding of the zigzag frequency slab through the shared
-  ``native`` rANS library (the ``R``/``B``/``Z`` size race) and zlib, and
+* Host: entropy coding of the zigzag frequency slab through the port's
+  copy of the ``native`` rANS library (the ``R``/``B``/``Z`` size race) and zlib, and
   the motion-vector ('M') and intra mode-map ('I') side sections.
-* Device (``device`` argument): the slab layout ops and the chains of
+* Device (``device`` argument, the card unless the caller asks for the
+  CPU; no card raises): the slab layout ops and the chains of
   ``ops.transcode`` as torch ops.  The fused decode -> re-encode of a stream
   without MC, intra, deblocking or threshold is ``ops.transcode.
   transcode_coeffs``, on a CUDA tensor the hand-written Hopper kernel; every
@@ -28,10 +29,9 @@ import zlib
 import numpy as np
 import torch
 
-from rabbit_transcoding_tpu import native
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.utils.enums import ColorFormat
-
+from .. import native
+from ..core.image import Video
+from ..device import resolve
 from ..ops import rbv_tools as tools
 from ..ops.dct import blockify, deblockify, pad_to_block
 from ..ops.transcode import (
@@ -40,6 +40,7 @@ from ..ops.transcode import (
     transcode_coeffs,
     transcode_coeffs_ref,
 )
+from ..utils.enums import ColorFormat
 
 _MAGIC = b"RBV2"
 _HEADER = struct.Struct("<4sBBHHBBHBBBB")
@@ -279,8 +280,9 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 
 def encode(video: Video, params: RbvParams,
-           device=torch.device("cpu")) -> tuple[bytes, Video]:
+           device: torch.device | str = "cuda") -> tuple[bytes, Video]:
     """Encode a Video -> (payload bytes, closed-loop reconstruction)."""
+    device = resolve(device)
     f = video.frame_count
     use_mc = params.motion and not params.lossless and params.gop_size > 1
     use_db = params.deblock and not params.lossless
@@ -396,8 +398,9 @@ class _Plane:
         return None if x is None else torch.from_numpy(x).to(self.q.device)
 
 
-def decode(payload: bytes, device=torch.device("cpu")) -> Video:
+def decode(payload: bytes, device: torch.device | str = "cuda") -> Video:
     """Decode an RBV payload -> Video."""
+    device = resolve(device)
     flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
         payload
     )
@@ -426,7 +429,7 @@ def decode(payload: bytes, device=torch.device("cpu")) -> Video:
 
 
 def _reencode_lossless(payload: bytes, new_qp: int, new_gop: int | None,
-                       zlib_level: int, device=torch.device("cpu")) -> bytes:
+                       zlib_level: int, device: torch.device) -> bytes:
     """Lossless input has no coefficient domain: transcoding it to a lossy
     rate point is a first quantisation (full decode -> encode)."""
     _, _, _, _, _, _, block, gop, _ = _parse_header(payload)
@@ -439,13 +442,14 @@ def _reencode_lossless(payload: bytes, new_qp: int, new_gop: int | None,
 
 
 def requantize(payload: bytes, new_qp: int, zlib_level: int = 6,
-               device=torch.device("cpu")) -> bytes:
+               device: torch.device | str = "cuda") -> bytes:
     """DCT-domain transcode: re-quantise the coefficients to a new QP
     without a pixel-domain round trip.  Non-MC streams with GOP > 1 fold
     each frame's requantisation error into the next frame (drift
     compensated); MC streams and GOP 1 rescale open-loop.  Motion vectors
     and intra mode maps pass through.  Lossless streams take the
     decode -> encode path."""
+    device = resolve(device)
     flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
         payload
     )
@@ -518,13 +522,14 @@ def transcode_payload(
     new_gop: int | None = None,
     zlib_level: int = 6,
     coeff_threshold: int = 0,
-    device=torch.device("cpu"),
+    device: torch.device | str = "cuda",
 ) -> bytes:
     """Drift-free transcode: entropy decode on the host, the fused
     decode -> re-encode on ``device`` (pixels never leave it), entropy
     encode on the host.  MC streams keep their GOP (the motion vectors are
     bound to it) and reuse their motion vectors; intra streams re-code
     their I frames through the mosaic predictors."""
+    device = resolve(device)
     flags, width, height, bitdepth, chroma, f, block, gop, qp = _parse_header(
         payload
     )

@@ -249,3 +249,75 @@ def test_launch_counts_survive_concurrent_launches(cuda):
     torch.cuda.synchronize()
     assert tc.LAUNCHES - launches == 32 * 16
     assert tc.BATCHED_LAUNCHES - batched == 32 * 8
+
+
+# --- the Hopper design: bit-identical to the plain version everywhere -------
+def _coeffs(cuda, shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(-60, 60, size=shape).astype(np.int16)).to(cuda)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 12, 4097])
+@pytest.mark.parametrize("gop_in,gop_out", [(1, 1), (2, 2), (4, 4), (2, 3),
+                                            (3, 2)])
+def test_kernel_ragged_blocks_and_gops(cuda, n_blocks, gop_in, gop_out):
+    # n_blocks need not fill the last CTA: its idle block positions store
+    # nothing; 4097 is one past the main path's 64 x 64
+    c = _coeffs(cuda, (6, 1, n_blocks, 16, 16), seed=n_blocks + gop_out)
+    args = (c, _qs(16), _qs(32), 1023.0, gop_in, gop_out)
+    got = tc.transcode_coeffs(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tc.transcode_coeffs_ref(*args))
+
+
+@pytest.mark.parametrize("streams", [1, 2, 3, 4, 5])
+def test_batched_kernel_per_stream_qps(cuda, streams):
+    c = _coeffs(cuda, (streams, 4, 2, 5, 16, 16), seed=streams)
+    qs_in = torch.tensor([_qs(14 + 3 * i) for i in range(streams)],
+                         device=cuda)
+    qs_out = torch.tensor([_qs(40 - 2 * i) for i in range(streams)],
+                          device=cuda)
+    got = tc.transcode_coeffs_batched(c, qs_in, qs_out, 1023.0, 2, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tc.transcode_coeffs_batched_ref(
+        c, qs_in, qs_out, 1023.0, 2, 2))
+
+
+@pytest.mark.parametrize("case", ["identity_qp", "clamp", "maxval_255",
+                                  "maxval_1023"])
+def test_kernel_edge_cases(cuda, case):
+    c = _coeffs(cuda, (4, 3, 4, 16, 16), seed=11)
+    qs_in, qs_out, maxval = _qs(16), _qs(32), 1023.0
+    if case == "identity_qp":
+        qs_out = qs_in
+    elif case == "clamp":  # a tiny output step: quantised values hit +-32767
+        qs_in, qs_out = _qs(40), 1e-3
+    elif case == "maxval_255":
+        maxval = 255.0
+    args = (c, qs_in, qs_out, maxval, 2, 2)
+    got = tc.transcode_coeffs(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tc.transcode_coeffs_ref(*args))
+    if case == "clamp":
+        assert int(got.abs().max()) == 32767
+
+
+def test_kernel_rejects_misaligned_input(cuda):
+    flat = torch.zeros(2 * 256 + 8, dtype=torch.int16, device=cuda)
+    c = flat[1:1 + 2 * 256].view(2, 1, 1, 16, 16)  # 2 bytes past alignment
+    assert c.is_contiguous() and c.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        tc.transcode_coeffs(c, 1.0, 2.0, 255.0, 1, 1)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    from rabbit_transcoding_tpu_torch.transcoder import (
+        MultiStreamTranscoder, Transcoder)
+    from rabbit_transcoding_tpu_torch.utils.enums import CodecId
+    from rabbit_transcoding_tpu_torch.video import VideoDecoder, VideoEncoder
+
+    for obj in (Transcoder(), MultiStreamTranscoder(),
+                VideoEncoder.create(CodecId.RBV),
+                VideoDecoder.create(CodecId.RBV)):
+        assert obj.device.type == "cuda"

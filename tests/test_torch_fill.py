@@ -1,24 +1,33 @@
 """The port's push-pull background fill and the transcode of lossless input
-over an occupancy map, against the JAX package on the CPU."""
+over an occupancy map, against the JAX package on the CPU.  Each package
+parses V3C bytes with its own reader; the two meet only in bytes and numpy
+arrays."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
+from rabbit_transcoding_tpu import bitstream as ref_bitstream
 from rabbit_transcoding_tpu.core.gof import GroupOfFrames
 from rabbit_transcoding_tpu.encoder.encoder import Encoder
 from rabbit_transcoding_tpu.encoder.params import EncoderParameters
 from rabbit_transcoding_tpu.ops import dilate as ref_dilate
 from rabbit_transcoding_tpu.ops import occupancy as ref_occupancy
 from rabbit_transcoding_tpu.testdata import make_frame
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
+from rabbit_transcoding_tpu.transcoder.params import (
+    TranscoderParameters as RefParameters,
+)
 from rabbit_transcoding_tpu.transcoder.transcoder import Transcoder as RefTranscoder
-from rabbit_transcoding_tpu.utils.enums import VideoType
+from rabbit_transcoding_tpu_torch import bitstream
+from rabbit_transcoding_tpu_torch.bitstream import V3CReader, V3CWriter
 from rabbit_transcoding_tpu_torch.ops import dilate, occupancy
 from rabbit_transcoding_tpu_torch.testdata import make_stream
+from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 from rabbit_transcoding_tpu_torch.transcoder.transcoder import Transcoder
+from rabbit_transcoding_tpu_torch.utils.enums import VideoType
 
 from test_e2e_codec import make_sphere_cloud
 
@@ -80,16 +89,23 @@ def test_upsample_nearest_equals_reference(factor):
 
 # --- lossless video over an occupancy map -----------------------------------
 def _transcode(data: bytes, transcoder) -> bytes:
-    reader = V3CReader()
+    """The first GOF of ``data`` through ``transcoder``, read and written by
+    the V3C reader and writer of the transcoder's own package."""
+    bs = ref_bitstream if isinstance(transcoder, RefTranscoder) else bitstream
+    reader = bs.V3CReader()
     context = reader.decode(reader.read(data)[0])
     transcoder.transcode(context)
-    writer = V3CWriter()
+    writer = bs.V3CWriter()
     return writer.write(writer.encode(context))
+
+
+def _ref_params(params: TranscoderParameters) -> RefParameters:
+    return RefParameters(**dataclasses.asdict(params))
 
 
 def _encode(params: EncoderParameters, gof: GroupOfFrames) -> bytes:
     context, _ = Encoder(params).encode(gof)
-    writer = V3CWriter()
+    writer = ref_bitstream.V3CWriter()
     return writer.write(writer.encode(context))
 
 
@@ -130,7 +146,8 @@ def test_encoder_lossless_input_bytes_identical(encoder_lossless_stream, kw):
     assert VideoType.OCCUPANCY in atlas.video_bitstreams
     params = TranscoderParameters(**kw)
     assert (_transcode(encoder_lossless_stream, Transcoder(params, "cpu"))
-            == _transcode(encoder_lossless_stream, RefTranscoder(params)))
+            == _transcode(encoder_lossless_stream,
+                          RefTranscoder(_ref_params(params))))
 
 
 def test_lossless_predicted_pair_bytes_identical(
@@ -144,7 +161,7 @@ def test_lossless_predicted_pair_bytes_identical(
     got = _transcode(lossless_predicted_pair_stream,
                      Transcoder(params, "cpu"))
     assert got == _transcode(lossless_predicted_pair_stream,
-                             RefTranscoder(params))
+                             RefTranscoder(_ref_params(params)))
     assert len(got) < len(lossless_predicted_pair_stream)
 
 
@@ -155,7 +172,7 @@ def test_testdata_lossless_stream_bytes_identical(size):
     data = make_stream(*size, lossless=True)
     params = TranscoderParameters(geometryQP=28, attributeQP=36)
     got = _transcode(data, Transcoder(params, "cpu"))
-    assert got == _transcode(data, RefTranscoder(params))
+    assert got == _transcode(data, RefTranscoder(_ref_params(params)))
     assert len(got) < len(data)
 
 
@@ -171,7 +188,7 @@ def test_fill_changes_the_output():
     params = TranscoderParameters(geometryQP=28, attributeQP=36)
     filled = _transcode(data, Transcoder(params, "cpu"))
     bare = _transcode(no_occ, Transcoder(params, "cpu"))
-    assert bare == _transcode(no_occ, RefTranscoder(params))
+    assert bare == _transcode(no_occ, RefTranscoder(_ref_params(params)))
 
     def geometry(out):
         return reader.decode(reader.read(out)[0]).atlas(0).video_bitstreams[

@@ -1,18 +1,26 @@
 """Per-map sub-streams, predicted map pairs and ABR rate control: the port's
 Transcoder against the JAX package's on the CPU (bytes, chosen QPs and the
-QP cache)."""
+QP cache).  Each package parses V3C bytes with its own reader; the two meet
+only in bytes."""
+
+import dataclasses
 
 import pytest
 
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
+from rabbit_transcoding_tpu import bitstream as ref_bitstream
 from rabbit_transcoding_tpu.core.gof import GroupOfFrames
 from rabbit_transcoding_tpu.encoder.encoder import Encoder
 from rabbit_transcoding_tpu.encoder.params import EncoderParameters
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
+from rabbit_transcoding_tpu.transcoder.params import (
+    TranscoderParameters as RefParameters,
+)
 from rabbit_transcoding_tpu.transcoder.transcoder import Transcoder as RefTranscoder
-from rabbit_transcoding_tpu.utils.enums import VideoType
+from rabbit_transcoding_tpu_torch import bitstream
+from rabbit_transcoding_tpu_torch.bitstream import V3CReader
 from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
+from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 from rabbit_transcoding_tpu_torch.transcoder.transcoder import Transcoder
+from rabbit_transcoding_tpu_torch.utils.enums import VideoType
 
 from test_e2e_codec import make_sphere_cloud
 
@@ -25,7 +33,7 @@ def _encode(**kw) -> bytes:
     params.update(kw)
     context, _ = Encoder(EncoderParameters(**params)).encode(
         GroupOfFrames([make_sphere_cloud(seed=7)]))
-    writer = V3CWriter()
+    writer = ref_bitstream.V3CWriter()
     return writer.write(writer.encode(context))
 
 
@@ -42,16 +50,24 @@ def absolute_maps() -> bytes:
 
 
 def _transcode(data: bytes, transcoder, gof: int = 0) -> bytes:
-    reader = V3CReader()
+    """GOF ``gof`` of ``data`` through ``transcoder``, read and written by
+    the V3C reader and writer of the transcoder's own package."""
+    bs = ref_bitstream if isinstance(transcoder, RefTranscoder) else bitstream
+    reader = bs.V3CReader()
     context = reader.decode(reader.read(data)[gof])
     transcoder.transcode(context)
-    writer = V3CWriter()
+    writer = bs.V3CWriter()
     return writer.write(writer.encode(context))
 
 
+def _pair(params: TranscoderParameters):
+    """(reference Transcoder, port Transcoder on the CPU) of ``params``."""
+    return (RefTranscoder(RefParameters(**dataclasses.asdict(params))),
+            Transcoder(params, "cpu"))
+
+
 def _both(data: bytes, **kw):
-    params = TranscoderParameters(**kw)
-    ref, port = RefTranscoder(params), Transcoder(params, "cpu")
+    ref, port = _pair(TranscoderParameters(**kw))
     return _transcode(data, port), _transcode(data, ref), port, ref
 
 
@@ -126,8 +142,8 @@ def test_abr_cache_reused_across_gofs():
     # cache is checked against the new sizes)
     base = make_stream(4, 128, 128)
     gofs = [base, base, with_input_qps(base, 24, 30)]
-    params = TranscoderParameters(rate_mode="abr", targetBitrateMbps=2.0)
-    ref, port = RefTranscoder(params), Transcoder(params, "cpu")
+    ref, port = _pair(TranscoderParameters(rate_mode="abr",
+                                           targetBitrateMbps=2.0))
     caches = []
     for data in gofs:
         assert _transcode(data, port) == _transcode(data, ref)

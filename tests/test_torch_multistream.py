@@ -1,12 +1,15 @@
 """The port's batched multi-stream path against the JAX package on the CPU:
 ``parallel.multistream.transcode_payloads`` against the sequential
 ``rbv.transcode_payload`` / ``requantize``, and ``MultiStreamTranscoder``
-against the single-stream ``Transcoder`` on each context."""
+against the single-stream ``Transcoder`` on each context.  Each package
+parses V3C bytes with its own reader; the two meet only in bytes."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
+from rabbit_transcoding_tpu import bitstream as ref_bitstream
 from rabbit_transcoding_tpu.core.gof import GroupOfFrames
 from rabbit_transcoding_tpu.core.image import Video
 from rabbit_transcoding_tpu.encoder.encoder import Encoder
@@ -14,11 +17,14 @@ from rabbit_transcoding_tpu.encoder.params import EncoderParameters
 from rabbit_transcoding_tpu.transcoder.multistream import (
     MultiStreamTranscoder as RefMultiStreamTranscoder,
 )
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
+from rabbit_transcoding_tpu.transcoder.params import (
+    TranscoderParameters as RefParameters,
+)
 from rabbit_transcoding_tpu.transcoder.transcoder import Transcoder as RefTranscoder
 from rabbit_transcoding_tpu.utils.enums import ColorFormat
 from rabbit_transcoding_tpu.video import rbv as ref_rbv
 from rabbit_transcoding_tpu.video.rbv import RbvParams
+from rabbit_transcoding_tpu_torch import bitstream
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.parallel.multistream import (
     transcode_payloads,
@@ -27,6 +33,7 @@ from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
 from rabbit_transcoding_tpu_torch.transcoder.multistream import (
     MultiStreamTranscoder,
 )
+from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 
 from test_e2e_codec import make_sphere_cloud
 
@@ -117,7 +124,7 @@ def _encode(**kw) -> bytes:
     params.update(kw)
     context, _ = Encoder(EncoderParameters(**params)).encode(
         GroupOfFrames([make_sphere_cloud(seed=7)]))
-    writer = V3CWriter()
+    writer = ref_bitstream.V3CWriter()
     return writer.write(writer.encode(context))
 
 
@@ -136,21 +143,27 @@ def streams() -> dict:
     }
 
 
-def _contexts(datas):
-    reader = V3CReader()
+def _contexts(datas, bs=bitstream):
+    """The first GOF of each stream, parsed by ``bs`` (the port's bitstream
+    package unless the reference's is given)."""
+    reader = bs.V3CReader()
     return [reader.decode(reader.read(d)[0]) for d in datas]
 
 
-def _write(contexts) -> list[bytes]:
-    writer = V3CWriter()
+def _write(contexts, bs=bitstream) -> list[bytes]:
+    writer = bs.V3CWriter()
     return [writer.write(writer.encode(c)) for c in contexts]
 
 
+def _ref_params(params: TranscoderParameters) -> RefParameters:
+    return RefParameters(**dataclasses.asdict(params))
+
+
 def _sequential_reference(datas, params) -> list[bytes]:
-    contexts = _contexts(datas)
+    contexts = _contexts(datas, ref_bitstream)
     for ctx in contexts:
-        RefTranscoder(params).transcode(ctx)
-    return _write(contexts)
+        RefTranscoder(_ref_params(params)).transcode(ctx)
+    return _write(contexts, ref_bitstream)
 
 
 @pytest.mark.parametrize("kind,threshold", [
@@ -169,9 +182,9 @@ def test_multistream_equals_reference_transcoder(streams, kind, threshold):
     assert got == _sequential_reference(datas, params)
     if threshold == 0:
         # the reference's batched path agrees where it passes no threshold
-        ref = _contexts(datas)
-        RefMultiStreamTranscoder(params).transcode_many(ref)
-        assert got == _write(ref)
+        ref = _contexts(datas, ref_bitstream)
+        RefMultiStreamTranscoder(_ref_params(params)).transcode_many(ref)
+        assert got == _write(ref, ref_bitstream)
 
 
 @pytest.mark.parametrize("kw", [
@@ -194,14 +207,14 @@ def test_mixed_round_keeps_per_stream_state(streams):
     datas = [streams["plain"][0], streams["mc_intra"][0],
              streams["lossless"][0]]
     mst = MultiStreamTranscoder(params, "cpu")
-    refs = [RefTranscoder(params) for _ in datas]
+    refs = [RefTranscoder(_ref_params(params)) for _ in datas]
     for ids in ([0, 1, 2], [2, 0]):
         contexts = _contexts([datas[i] for i in ids])
         mst.transcode_many(contexts, stream_ids=ids)
-        want = _contexts([datas[i] for i in ids])
+        want = _contexts([datas[i] for i in ids], ref_bitstream)
         for i, ctx in zip(ids, want):
             refs[i].transcode(ctx)
-        assert _write(contexts) == _write(want)
+        assert _write(contexts) == _write(want, ref_bitstream)
         assert [mst.single(i)._rc_cache for i in ids] == [
             refs[i]._rc_cache for i in ids]
 

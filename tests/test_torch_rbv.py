@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from rabbit_transcoding_tpu import native
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.utils.enums import ColorFormat
+from rabbit_transcoding_tpu import native as ref_native
+from rabbit_transcoding_tpu.core.image import Video as RefVideo
+from rabbit_transcoding_tpu.utils.enums import ColorFormat as RefColorFormat
 from rabbit_transcoding_tpu.video import rbv as ref
+from rabbit_transcoding_tpu_torch import native
+from rabbit_transcoding_tpu_torch.core.image import Video
+from rabbit_transcoding_tpu_torch.utils.enums import ColorFormat
 from rabbit_transcoding_tpu_torch.video import rbv
 
 CPU = torch.device("cpu")
@@ -43,10 +46,16 @@ def _video(f, h, w, bitdepth, fmt, seed=0):
         noise = rng.normal(scale=0.01, size=(hh, ww))
         return np.clip((base + noise) * maxv, 0, maxv).astype(dt)
 
-    dims = ref._plane_dims(w, h, fmt)
+    dims = rbv._plane_dims(w, h, fmt)
     planes = [np.stack([plane(ph, pw, k) for k in range(f)])
               for ph, pw in dims]
     return Video(w, h, bitdepth, fmt, planes)
+
+
+def _ref_video(video: Video) -> RefVideo:
+    """The port's Video as the reference's (its own class and enum)."""
+    return RefVideo(video.width, video.height, video.bitdepth,
+                    RefColorFormat(int(video.format)), video.planes)
 
 
 def _ref_params(**kw):
@@ -97,11 +106,13 @@ def test_encode_coeff_blob_bytes_identical(case):
 def test_band_backend_bytes_identical(monkeypatch):
     # a slab of 4 x 256 x 8 x 8 int16 = 128 KiB > 64 KiB lets the band
     # backend 'B' into the size race; handicap the other two backends (in
-    # the one native module and zlib both packages use) so that 'B' wins
+    # each package's native module, and zlib) so that 'B' wins
     c = _coeffs(2, shape=(4, 8, 8, 16, 16), scale=40.0, decay=0.01)
     pad = b"\0" * (1 << 20)
-    compress_i16, compress = native.compress_i16, zlib.compress
-    monkeypatch.setattr(native, "compress_i16", lambda a: compress_i16(a) + pad)
+    compress = zlib.compress
+    for mod in (native, ref_native):
+        monkeypatch.setattr(mod, "compress_i16",
+                            lambda a, f=mod.compress_i16: f(a) + pad)
     monkeypatch.setattr(zlib, "compress",
                         lambda data, level=-1: compress(data, level) + pad)
     want = ref._encode_coeff_blob(jnp.asarray(c), 6)
@@ -128,9 +139,9 @@ def _ref_blob(c: np.ndarray, backend: bytes) -> bytes:
         segs = ref._band_segments(f, kmax, nby * nbx, starts)
         body = bytes([len(starts)]) + b"".join(
             struct.pack("<H", s) for s in starts
-        ) + native.compress_i16_bands(slab, segs, len(starts))
+        ) + ref_native.compress_i16_bands(slab, segs, len(starts))
     elif backend == b"R":
-        body = native.compress_i16(slab)
+        body = ref_native.compress_i16(slab)
     else:
         body = zlib.compress(slab.tobytes(), 6)
     return head + backend + body
@@ -164,8 +175,9 @@ _LOSSY = [
 @pytest.mark.parametrize("f,h,w,bd,fmt,qp,gop", _LOSSY)
 def test_encode_lossy_bytes_identical(f, h, w, bd, fmt, qp, gop):
     video = _video(f, h, w, bd, fmt)
-    want, want_rec = ref.encode(video, _ref_params(qp=qp, gop_size=gop))
-    got, got_rec = rbv.encode(video, _port_params(qp=qp, gop_size=gop))
+    want, want_rec = ref.encode(_ref_video(video),
+                                _ref_params(qp=qp, gop_size=gop))
+    got, got_rec = rbv.encode(video, _port_params(qp=qp, gop_size=gop), CPU)
     assert got == want
     for a, b in zip(got_rec.planes, want_rec.planes):
         np.testing.assert_array_equal(a, b)
@@ -178,21 +190,21 @@ def test_encode_lossless_bytes_identical(tag):
         video = Video(40, 24, 8, ColorFormat.YUV400, [occ.astype(np.uint8)])
     else:
         video = _video(2, 24, 40, 10, ColorFormat.YUV400)
-    want, _ = ref.encode(video, _ref_params(lossless=True))
-    got, rec = rbv.encode(video, _port_params(lossless=True))
+    want, _ = ref.encode(_ref_video(video), _ref_params(lossless=True))
+    got, rec = rbv.encode(video, _port_params(lossless=True), CPU)
     assert got == want
     assert got[rbv._HEADER.size + 4:][:1] == tag
     np.testing.assert_array_equal(rec.planes[0], video.planes[0])
-    np.testing.assert_array_equal(rbv.decode(want).planes[0],
+    np.testing.assert_array_equal(rbv.decode(want, CPU).planes[0],
                                   video.planes[0])
 
 
 @pytest.mark.parametrize("f,h,w,bd,fmt,qp,gop", _LOSSY)
 def test_decode_equal(f, h, w, bd, fmt, qp, gop):
-    payload, _ = ref.encode(_video(f, h, w, bd, fmt),
+    payload, _ = ref.encode(_ref_video(_video(f, h, w, bd, fmt)),
                             _ref_params(qp=qp, gop_size=gop))
     want = ref.decode(payload)
-    got = rbv.decode(payload)
+    got = rbv.decode(payload, CPU)
     assert (got.width, got.height, got.bitdepth, got.format) == (
         want.width, want.height, want.bitdepth, want.format)
     for a, b in zip(got.planes, want.planes):
@@ -204,26 +216,28 @@ def test_decode_equal(f, h, w, bd, fmt, qp, gop):
 @pytest.mark.parametrize("f,h,w,bd,fmt,qp,gop", _LOSSY[:2])
 def test_transcode_payload_bytes_identical(f, h, w, bd, fmt, qp, gop,
                                            new_qp, new_gop):
-    payload, _ = ref.encode(_video(f, h, w, bd, fmt),
+    payload, _ = ref.encode(_ref_video(_video(f, h, w, bd, fmt)),
                             _ref_params(qp=qp, gop_size=gop))
     want = ref.transcode_payload(payload, new_qp, new_gop=new_gop)
-    got = rbv.transcode_payload(payload, new_qp, new_gop=new_gop)
+    got = rbv.transcode_payload(payload, new_qp, new_gop=new_gop,
+                                device=CPU)
     assert got == want
     # the reference's decoder reads the port's output
     dec = ref.decode(got)
-    for a, b in zip(dec.planes, rbv.decode(got).planes):
+    for a, b in zip(dec.planes, rbv.decode(got, CPU).planes):
         np.testing.assert_array_equal(a, b)
 
 
 def test_transcode_payload_of_lossless_input():
     video = _video(3, 32, 48, 10, ColorFormat.YUV400)
-    payload, _ = ref.encode(video, _ref_params(lossless=True))
-    assert (rbv.transcode_payload(payload, 30, new_gop=2)
+    payload, _ = ref.encode(_ref_video(video), _ref_params(lossless=True))
+    assert (rbv.transcode_payload(payload, 30, new_gop=2, device=CPU)
             == ref.transcode_payload(payload, 30, new_gop=2))
 
 
 def test_probe_equal():
-    payload, _ = ref.encode(_video(3, 40, 56, 8, ColorFormat.YUV420),
+    payload, _ = ref.encode(_ref_video(_video(3, 40, 56, 8,
+                                              ColorFormat.YUV420)),
                             _ref_params(qp=22))
     assert rbv.probe(payload) == ref.probe(payload)
 
@@ -234,12 +248,13 @@ def test_probe_equal():
 @pytest.mark.parametrize("feature", ["motion", "intra"])
 def test_streams_outside_the_slice_raise(feature):
     video = _video(2, 32, 32, 8, ColorFormat.YUV400)
-    payload, _ = ref.encode(video, _ref_params(qp=30, gop_size=2,
-                                               **{feature: True}))
+    payload, _ = ref.encode(_ref_video(video),
+                            _ref_params(qp=30, gop_size=2, **{feature: True}))
     assert ref.probe(payload)[feature]
-    assert rbv.transcode_payload(payload, 34) == ref.transcode_payload(
-        payload, 34)
-    for a, b in zip(rbv.decode(payload).planes, ref.decode(payload).planes):
+    assert rbv.transcode_payload(payload, 34, device=CPU) == (
+        ref.transcode_payload(payload, 34))
+    for a, b in zip(rbv.decode(payload, CPU).planes,
+                    ref.decode(payload).planes):
         np.testing.assert_array_equal(a, b)
 
 
@@ -247,15 +262,19 @@ def test_streams_outside_the_slice_raise(feature):
                                 {"deblock": True}, {"coeff_threshold": 8}])
 def test_encode_options_outside_the_slice_raise(kw):
     video = _video(2, 32, 32, 8, ColorFormat.YUV400)
-    want, want_rec = ref.encode(video, _ref_params(qp=30, gop_size=2, **kw))
-    got, got_rec = rbv.encode(video, _port_params(qp=30, gop_size=2, **kw))
+    want, want_rec = ref.encode(_ref_video(video),
+                                _ref_params(qp=30, gop_size=2, **kw))
+    got, got_rec = rbv.encode(video, _port_params(qp=30, gop_size=2, **kw),
+                              CPU)
     assert got == want
     np.testing.assert_array_equal(got_rec.planes[0], want_rec.planes[0])
 
 
 def test_requantize_and_threshold_raise():
-    payload, _ = ref.encode(_video(2, 32, 32, 8, ColorFormat.YUV400),
+    payload, _ = ref.encode(_ref_video(_video(2, 32, 32, 8,
+                                              ColorFormat.YUV400)),
                             _ref_params(qp=30))
-    assert rbv.requantize(payload, 36) == ref.requantize(payload, 36)
-    assert (rbv.transcode_payload(payload, 36, coeff_threshold=8)
+    assert rbv.requantize(payload, 36, device=CPU) == ref.requantize(payload,
+                                                                     36)
+    assert (rbv.transcode_payload(payload, 36, coeff_threshold=8, device=CPU)
             == ref.transcode_payload(payload, 36, coeff_threshold=8))

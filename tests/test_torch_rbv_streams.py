@@ -3,23 +3,31 @@ compensation, intra prediction, deblocking and the coefficient threshold,
 against the JAX reference: ``encode`` (payload bytes and recon), ``decode``,
 ``transcode_payload``, ``requantize``, the ``Transcoder`` in ``reencode`` and
 ``requant`` mode, and the MC + intra test stream.  Equality is exact, and
-each package decodes the other's output."""
+each package decodes the other's output.  Each package parses V3C bytes
+with its own reader; the two meet only in bytes and numpy arrays."""
 
 import numpy as np
 import pytest
 import torch
 
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
+from rabbit_transcoding_tpu import bitstream as ref_bitstream
+from rabbit_transcoding_tpu.core.image import Video as RefVideo
+from rabbit_transcoding_tpu.transcoder.params import (
+    TranscoderParameters as RefParameters,
+)
 from rabbit_transcoding_tpu.transcoder.transcoder import Transcoder as RefTranscoder
-from rabbit_transcoding_tpu.utils.enums import ColorFormat, VideoType
+from rabbit_transcoding_tpu.utils.enums import ColorFormat as RefColorFormat
 from rabbit_transcoding_tpu.video import rbv as ref
-from rabbit_transcoding_tpu_torch import testdata
+from rabbit_transcoding_tpu_torch import bitstream, testdata
+from rabbit_transcoding_tpu_torch.bitstream import V3CReader
+from rabbit_transcoding_tpu_torch.core.image import Video
+from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 from rabbit_transcoding_tpu_torch.transcoder.transcoder import Transcoder
+from rabbit_transcoding_tpu_torch.utils.enums import ColorFormat, VideoType
 from rabbit_transcoding_tpu_torch.video import rbv
 
 Y400, Y420 = ColorFormat.YUV400, ColorFormat.YUV420
+CPU = torch.device("cpu")
 
 
 def _video(f, h, w, bitdepth, fmt, seed=0, move=3):
@@ -35,10 +43,16 @@ def _video(f, h, w, bitdepth, fmt, seed=0, move=3):
         noise = rng.normal(scale=0.02, size=(hh, ww))
         return np.clip((base + noise) * maxv, 0, maxv).astype(dt)
 
-    dims = ref._plane_dims(w, h, fmt)
+    dims = rbv._plane_dims(w, h, fmt)
     return Video(w, h, bitdepth, fmt, [
         np.stack([plane(ph, pw, k, c) for k in range(f)])
         for c, (ph, pw) in enumerate(dims)])
+
+
+def _ref_video(video: Video) -> RefVideo:
+    """The port's Video as the reference's (its own class and enum)."""
+    return RefVideo(video.width, video.height, video.bitdepth,
+                    RefColorFormat(int(video.format)), video.planes)
 
 
 def _occupancy(f, h, w, seed=3):
@@ -47,15 +61,15 @@ def _occupancy(f, h, w, seed=3):
 
 
 def _planes_equal(a: Video, b: Video) -> None:
-    assert (a.width, a.height, a.bitdepth, a.format) == (
-        b.width, b.height, b.bitdepth, b.format)
+    assert (a.width, a.height, a.bitdepth, int(a.format)) == (
+        b.width, b.height, b.bitdepth, int(b.format))
     for pa, pb in zip(a.planes, b.planes):
         assert pa.dtype == pb.dtype
         np.testing.assert_array_equal(pa, pb)
 
 
 def _decodes_alike(payload: bytes) -> None:
-    _planes_equal(rbv.decode(payload), ref.decode(payload))
+    _planes_equal(rbv.decode(payload, CPU), ref.decode(payload))
 
 
 # (frames, h, w, bitdepth, format, qp, gop, motion, intra, deblock, thr_k,
@@ -86,8 +100,8 @@ def _encode_both(name):
     kw = dict(qp=qp, gop_size=gop, motion=motion, intra=intra, deblock=db,
               coeff_threshold=thr,
               mc_weight=_occupancy(f, h, w) if weighted else None)
-    return ref.encode(video, ref.RbvParams(**kw)), rbv.encode(
-        video, rbv.RbvParams(**kw))
+    return ref.encode(_ref_video(video), ref.RbvParams(**kw)), rbv.encode(
+        video, rbv.RbvParams(**kw), CPU)
 
 
 @pytest.mark.parametrize("name", list(_STREAMS))
@@ -117,7 +131,7 @@ def test_transcode_payload(name, new_qp, new_gop, thr_k):
     want = ref.transcode_payload(payload, new_qp, new_gop=new_gop,
                                  coeff_threshold=thr_k)
     got = rbv.transcode_payload(payload, new_qp, new_gop=new_gop,
-                                coeff_threshold=thr_k)
+                                coeff_threshold=thr_k, device=CPU)
     assert got == want
     _decodes_alike(got)
 
@@ -127,7 +141,7 @@ def test_transcode_payload(name, new_qp, new_gop, thr_k):
 def test_requantize(name):
     (payload, _), _ = _encode_both(name)
     qp = rbv.probe(payload)["qp"]
-    got = rbv.requantize(payload, qp + 7)
+    got = rbv.requantize(payload, qp + 7, device=CPU)
     assert got == ref.requantize(payload, qp + 7)
     _decodes_alike(got)
     if rbv.probe(payload)["intra"]:
@@ -149,10 +163,11 @@ def test_requantize(name):
 
 def test_requantize_same_qp_and_lossless():
     (payload, _), _ = _encode_both("mc_intra_gop2")
-    assert rbv.requantize(payload, rbv.probe(payload)["qp"]) is payload
-    lossless, _ = ref.encode(_video(3, 32, 48, 10, Y400),
+    assert rbv.requantize(payload, rbv.probe(payload)["qp"],
+                          device=CPU) is payload
+    lossless, _ = ref.encode(_ref_video(_video(3, 32, 48, 10, Y400)),
                              ref.RbvParams(lossless=True))
-    got = rbv.requantize(lossless, 30)
+    got = rbv.requantize(lossless, 30, device=CPU)
     assert got == ref.requantize(lossless, 30)
     _decodes_alike(got)
 
@@ -180,27 +195,30 @@ def test_mc_intra_stream_payloads_match_reference_encode(mc_intra_stream):
     for key, vt in (("geometry", VideoType.GEOMETRY),
                     ("attribute", VideoType.ATTRIBUTE)):
         payload = atlas.get_video_bitstream(vt).data
-        want, _ = ref.encode(videos[key], ref.RbvParams(**params[key]))
+        want, _ = ref.encode(_ref_video(videos[key]),
+                             ref.RbvParams(**params[key]))
         assert payload == want
         info = rbv.probe(payload)
         assert info["motion"] and info["intra"]
 
 
-def _transcode(data: bytes, transcoder) -> bytes:
-    reader = V3CReader()
+def _transcode(data: bytes, transcoder, bitstream) -> bytes:
+    """The first GOF of ``data`` through ``transcoder``, read and written by
+    the V3C reader and writer of ``bitstream`` (the transcoder's package)."""
+    reader = bitstream.V3CReader()
     context = reader.decode(reader.read(data)[0])
     transcoder.transcode(context)
-    writer = V3CWriter()
+    writer = bitstream.V3CWriter()
     return writer.write(writer.encode(context))
 
 
 @pytest.mark.parametrize("mode", ["reencode", "requant"])
 def test_transcoder_on_mc_intra_stream(mc_intra_stream, mode):
-    params = TranscoderParameters(geometryQP=32, attributeQP=42, mode=mode,
-                                  computeHashSei=True)
-    want = _transcode(mc_intra_stream, RefTranscoder(params))
+    kw = dict(geometryQP=32, attributeQP=42, mode=mode, computeHashSei=True)
+    want = _transcode(mc_intra_stream, RefTranscoder(RefParameters(**kw)),
+                      ref_bitstream)
     got = _transcode(mc_intra_stream,
-                     Transcoder(params, torch.device("cpu")))
+                     Transcoder(TranscoderParameters(**kw), CPU), bitstream)
     assert got == want
     reader = V3CReader()
     atlas = reader.decode(reader.read(got)[0]).atlas(0)

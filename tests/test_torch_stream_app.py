@@ -1,6 +1,8 @@
 """The port's rabbit-stream app against the JAX package's on the CPU:
 checkpointed GOFs, resume, failure containment and the batched multi-stream
-mode, with output bytes equal to the reference app's."""
+mode, with output bytes equal to the reference app's.  The streams are
+built and inspected with the port's own V3C reader and writer; the reference
+app reads and writes files."""
 
 import json
 import os
@@ -9,15 +11,15 @@ import pytest
 import torch
 
 from rabbit_transcoding_tpu.apps import stream as ref_app
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter
-from rabbit_transcoding_tpu.bitstream.v3c import (
+from rabbit_transcoding_tpu_torch.apps import stream as app
+from rabbit_transcoding_tpu_torch.bitstream import V3CReader, V3CWriter
+from rabbit_transcoding_tpu_torch.bitstream.v3c import (
     sample_stream_header,
     write_sample_stream_units,
 )
-from rabbit_transcoding_tpu.bitstream.video_bitstream import VideoBitstream
-from rabbit_transcoding_tpu.utils.enums import V3CUnitType, VideoType
-from rabbit_transcoding_tpu_torch.apps import stream as app
+from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import VideoBitstream
 from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
+from rabbit_transcoding_tpu_torch.utils.enums import V3CUnitType, VideoType
 
 QPS = dict(geometryQP=28, attributeQP=38)
 

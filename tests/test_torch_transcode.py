@@ -145,3 +145,25 @@ def test_wrapper_rejects_other_devices():
     c = torch.zeros((2, 1, 1, 16, 16), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):
         tc.transcode_coeffs(c, 1.0, 2.0, 255.0, 1, 1)
+
+
+def test_kernel_dct_literals_are_the_package_matrix():
+    # the CUDA kernel carries D as hexadecimal float literals (its FMA
+    # immediates): they must be dct_matrix(16)'s float32 values, bit for bit
+    import re
+    from pathlib import Path
+
+    from rabbit_transcoding_tpu.ops.dct import dct_matrix as ref_dct_matrix
+    from rabbit_transcoding_tpu_torch.ops.dct import dct_matrix
+
+    src = (Path(tc.__file__).resolve().parents[1] / "csrc"
+           / "transcode_gops.cu").read_text()
+    table = re.search(r"constexpr float kD\[kB \* kB\] = \{(.*?)\};", src,
+                      re.S).group(1)
+    lits = re.findall(r"-?0x[0-9a-f.]+p[-+]?\d+f", table)
+    got = np.array([float.fromhex(x[:-1]) for x in lits], np.float32)
+    assert got.shape == (256,)
+    want = dct_matrix(16).reshape(-1)
+    assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()
+    np.testing.assert_array_equal(want, np.asarray(ref_dct_matrix(16)
+                                                   ).reshape(-1))

@@ -1,6 +1,7 @@
 """The port's live transcode as a whole against the JAX reference: the
 benchmark stream, the Transcoder and the rabbit-transcode app give the same
-bytes on the CPU."""
+bytes on the CPU.  Each package parses the input bytes with its own V3C
+reader; the two meet only in bytes and numpy arrays."""
 
 import importlib
 import os
@@ -9,15 +10,19 @@ import numpy as np
 import pytest
 import torch
 
-from rabbit_transcoding_tpu.bitstream import V3CReader, V3CWriter, VideoBitstream
-from rabbit_transcoding_tpu.core.image import Video
-from rabbit_transcoding_tpu.transcoder.params import TranscoderParameters
+from rabbit_transcoding_tpu import bitstream as ref_bitstream
+from rabbit_transcoding_tpu.transcoder.params import (
+    TranscoderParameters as RefParameters,
+)
 from rabbit_transcoding_tpu.transcoder.transcoder import Transcoder as RefTranscoder
-from rabbit_transcoding_tpu.utils.enums import ColorFormat, VideoType
 from rabbit_transcoding_tpu.video import rbv as ref_rbv
 from rabbit_transcoding_tpu_torch.apps import transcode as app
+from rabbit_transcoding_tpu_torch.bitstream import V3CReader, V3CWriter, VideoBitstream
+from rabbit_transcoding_tpu_torch.core.image import Video
 from rabbit_transcoding_tpu_torch.testdata import make_stream
+from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 from rabbit_transcoding_tpu_torch.transcoder.transcoder import Transcoder
+from rabbit_transcoding_tpu_torch.utils.enums import ColorFormat, VideoType
 from rabbit_transcoding_tpu_torch.video import rbv
 
 FRAMES, WIDTH, HEIGHT = 4, 128, 128
@@ -41,10 +46,21 @@ def stream() -> bytes:
 
 
 def _transcode(data: bytes, transcoder) -> bytes:
+    """The first GOF of ``data`` through the port's ``transcoder``, read and
+    written by the port's own V3C reader and writer."""
     reader = V3CReader()
     context = reader.decode(reader.read(data)[0])
     transcoder.transcode(context)
     writer = V3CWriter()
+    return writer.write(writer.encode(context))
+
+
+def _ref_transcode(data: bytes, **params) -> bytes:
+    """The same through the reference's Transcoder, reader and writer."""
+    reader = ref_bitstream.V3CReader()
+    context = reader.decode(reader.read(data)[0])
+    RefTranscoder(RefParameters(**params)).transcode(context)
+    writer = ref_bitstream.V3CWriter()
     return writer.write(writer.encode(context))
 
 
@@ -61,7 +77,7 @@ def test_make_stream_matches_bench(stream):
 def test_transcoder_bytes_identical(stream, kw):
     params = dict(geometryQP=32, attributeQP=42, mode="reencode")
     params.update(kw)
-    want = _transcode(stream, RefTranscoder(TranscoderParameters(**params)))
+    want = _ref_transcode(stream, **params)
     got = _transcode(stream, Transcoder(TranscoderParameters(**params), "cpu"))
     assert got == want
 
@@ -73,7 +89,7 @@ def test_output_decodes_in_both_packages(stream):
     atlas = reader.decode(reader.read(out)[0]).atlas(0)
     for vt in (VideoType.OCCUPANCY, VideoType.GEOMETRY, VideoType.ATTRIBUTE):
         payload = atlas.get_video_bitstream(vt).data
-        a, b = rbv.decode(payload), ref_rbv.decode(payload)
+        a, b = rbv.decode(payload, "cpu"), ref_rbv.decode(payload)
         assert a.frame_count == FRAMES
         for pa, pb in zip(a.planes, b.planes):
             np.testing.assert_array_equal(pa, pb)
@@ -85,8 +101,7 @@ def test_app_matches_reference_transcoder(stream, tmp_path, monkeypatch):
     rc = app.main(["--compressedStreamPath=in.bin", "--outStreamPath=out.bin",
                    "--geometryQP=30", "--attributeQP=40", "--device=cpu"])
     assert rc == 0
-    want = _transcode(stream, RefTranscoder(
-        TranscoderParameters(geometryQP=30, attributeQP=40)))
+    want = _ref_transcode(stream, geometryQP=30, attributeQP=40)
     assert (tmp_path / "out.bin").read_bytes() == want
 
 
@@ -115,7 +130,7 @@ def test_modes_not_ported_raise(stream, kw):
     # probes): the same bytes as the reference
     params = TranscoderParameters(**kw)
     assert (_transcode(stream, Transcoder(params, "cpu"))
-            == _transcode(stream, RefTranscoder(params)))
+            == _ref_transcode(stream, **kw))
 
 
 def _lossless_geometry_stream(with_occupancy: bool) -> bytes:
@@ -125,8 +140,8 @@ def _lossless_geometry_stream(with_occupancy: bool) -> bytes:
     atlas = context.atlas(0)
     rng = np.random.default_rng(7)
     geo = rng.integers(200, 400, size=(2, 64, 64)).astype(np.uint16)
-    payload, _ = ref_rbv.encode(Video(64, 64, 10, ColorFormat.YUV400, [geo]),
-                                ref_rbv.RbvParams(lossless=True))
+    payload, _ = rbv.encode(Video(64, 64, 10, ColorFormat.YUV400, [geo]),
+                            rbv.RbvParams(lossless=True), "cpu")
     atlas.set_video_bitstream(VideoBitstream(VideoType.GEOMETRY, payload))
     if not with_occupancy:
         del atlas.video_bitstreams[VideoType.OCCUPANCY]
@@ -138,7 +153,7 @@ def test_lossless_input_bytes_identical():
     data = _lossless_geometry_stream(with_occupancy=False)
     params = TranscoderParameters(geometryQP=28, attributeQP=38)
     assert (_transcode(data, Transcoder(params, "cpu"))
-            == _transcode(data, RefTranscoder(params)))
+            == _ref_transcode(data, geometryQP=28, attributeQP=38))
 
 
 def test_lossless_input_with_occupancy_raises():
@@ -147,7 +162,7 @@ def test_lossless_input_with_occupancy_raises():
     data = _lossless_geometry_stream(with_occupancy=True)
     params = TranscoderParameters()
     assert (_transcode(data, Transcoder(params, "cpu"))
-            == _transcode(data, RefTranscoder(params)))
+            == _ref_transcode(data))
 
 
 def test_profile_script_runs_on_cpu(tmp_path, capsys):
