@@ -13,8 +13,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
 3. kernel check: the fused transcode kernel against its plain PyTorch version
    on the card, at the test shapes and at the main path's shapes (geometry
    luma (32, 64, 64, 16, 16), chroma (32, 32, 32, 16, 16)), with both times
-   and the kernel's bound (``ops.transcode.transcode_bound_ms``) and share
-   of it;
+   and the kernel's bound (``ops.transcode.transcode_bound_ms``, and its
+   dense count) and share of it.  The kernel's ``ms`` is timed around the
+   wrapper call, host work included, as every earlier PR timed it;
+   ``device_ms`` times the device work alone (``ops/events.py``);
 4. main path: the 1024x1024, 32-frame benchmark stream (10-bit geometry and
    8-bit YUV420 attribute, lossy RBV at GOP 2; lossless occupancy),
    transcoded to geometry QP 32 / attribute QP 42 in ``reencode`` mode by
@@ -72,11 +74,13 @@ from rabbit_transcoding_tpu_torch import native
 from rabbit_transcoding_tpu_torch.ops import _build
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.apps import stream as stream_app
-from rabbit_transcoding_tpu_torch.apps.kernel_ab import median_ms
-from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
+from rabbit_transcoding_tpu_torch.ops.events import median_ms
+from rabbit_transcoding_tpu_torch.testdata import (
+    make_stream, stream_coeffs, stream_planes, with_input_qps,
+)
 from rabbit_transcoding_tpu_torch.transcoder import (
-    ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
-    V3CReader, V3CWriter, VideoType,
+    MultiStreamTranscoder, Transcoder, TranscoderParameters, V3CReader,
+    V3CWriter, VideoType,
 )
 from rabbit_transcoding_tpu_torch.video import rbv
 
@@ -92,9 +96,6 @@ FRAMES, WIDTH, HEIGHT = 32, 1024, 1024
 GEO_QP, ATTR_QP = 32, 42
 KERNEL_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_gops.cu"
 REPLACES = "rabbit_transcoding_tpu/ops/pallas_transcode.py:86"
-# kernel launches per 32-frame GOF of the main path (geometry luma,
-# attribute Y, U, V); the batched path launches as often per round
-LAUNCHES_PER_GOF = 4
 # input QPs (geometry; attribute + 6) of the multi-stream phases' streams
 STREAM_QPS = (16, 18, 20, 22)
 # the reduced size of the CPU runs that the lossless, map-pair and ABR
@@ -124,32 +125,6 @@ def gpu_name_and_power() -> str:
 def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return (d > 0).float().mean().item(), int(d.max().item())
-
-
-def stream_planes(data: bytes, device) -> dict:
-    """{(video type, plane): the plane's sections} of the lossy RBV planes:
-    int16 coefficients, intra mode maps and motion vectors (None when the
-    stream has none)."""
-    reader = V3CReader()
-    atlas = reader.decode(reader.read(data)[0]).atlas(0)
-    out = {}
-    for vt, vb in sorted(atlas.video_bitstreams.items(),
-                         key=lambda kv: kv[0].value):
-        payload = vb.data
-        if vt == VideoType.OCCUPANCY or rbv.probe(payload)["lossless"]:
-            continue
-        flags, w, h, _, chroma, f, b, gop, _ = rbv._parse_header(payload)
-        dims = rbv._plane_dims(w, h, ColorFormat(chroma))
-        for k, ((ph, pw), blob) in enumerate(
-                zip(dims, rbv._iter_blobs(payload, len(dims)))):
-            out[(vt.name, k)] = rbv._Plane(blob, flags, f, ph, pw, b, gop,
-                                           device)
-    return out
-
-
-def stream_coeffs(data: bytes, device) -> dict:
-    """{(video type, plane): int16 coefficients} of the lossy RBV planes."""
-    return {k: p.q for k, p in stream_planes(data, device).items()}
 
 
 def gpu_vs_cpu(name: str, got: bytes, want: bytes, dev, **fields) -> None:
@@ -204,6 +179,13 @@ def qstep(qp: int) -> float:
     return float(np.float32(rbv.qstep_of(qp)))
 
 
+def kernel_times(fn, n: int = 20) -> tuple[float, float]:
+    """(ms, device_ms) of ``fn()`` by CUDA events: around the whole call
+    (the wrapper's host work included, as in every earlier measurement), and
+    of the device work alone."""
+    return median_ms(fn, n), median_ms(fn, n, device_only=True)
+
+
 def write_context(context) -> bytes:
     writer = V3CWriter()
     return writer.write(writer.encode(context))
@@ -255,27 +237,33 @@ def batched_kernel_phase(streams: list[bytes], dev, card) -> dict:
     equal = all(torch.equal(got[i], one) for i, one in enumerate(singles()))
     want = tc.transcode_coeffs_batched_ref(*args)
     share, diff = compare(got, want)
-    b_ms = median_ms(lambda: tc.transcode_coeffs_batched(*args))
+    b_ms, b_dev = kernel_times(lambda: tc.transcode_coeffs_batched(*args))
     s_ms = median_ms(singles)
     p_ms = median_ms(lambda: tc.transcode_coeffs_batched_ref(*args), n=5)
     bound, by = tc.transcode_bound_ms(tuple(c.shape), 2)
+    dense, _ = tc.transcode_bound_ms(tuple(c.shape), 2, dense=True)
     phase("batched_kernel", shape=tuple(c.shape), input_qps=STREAM_QPS,
           equal_to_single_launches=equal, share=share, max_abs_diff=diff,
-          kernel_ms=f"{b_ms:.4f}", single_launches_ms=f"{s_ms:.4f}",
-          plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
-          bound_share=f"{bound / b_ms:.4f}", card=repr(card))
+          kernel_ms=f"{b_ms:.4f}", device_ms=f"{b_dev:.4f}",
+          single_launches_ms=f"{s_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+          bound_ms=f"{bound:.4f}", bound_by=by,
+          bound_share=f"{bound / b_ms:.4f}",
+          device_bound_share=f"{bound / b_dev:.4f}",
+          dense_bound_ms=f"{dense:.4f}", card=repr(card))
     check(equal, "batched launch differs from single-stream launches")
     check(share == 0 and diff == 0,
           f"batched kernel vs plain: share {share}, |diff| {diff}")
     return {"max_abs_err": diff, "ms": b_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "bound_share": bound / b_ms}
+            "bound_share": bound / b_ms, "device_ms": b_dev,
+            "dense_bound_ms": dense}
 
 
-def multistream_phase(streams: list[bytes], dev, params, card) -> int:
+def multistream_phase(streams: list[bytes], dev, params,
+                      card) -> tuple[int, int]:
     """9. S = 1, 2, 4 streams batched against the sequential loop ->
-    batched kernel launches of the S = 4 runs."""
-    launches = 0
+    (batched kernel launches of the S = 4 runs, per run)."""
+    launches = per_run = 0
     for s in (1, 2, 4):
         datas = streams[:s]
         mst = MultiStreamTranscoder(params, dev)
@@ -286,7 +274,7 @@ def multistream_phase(streams: list[bytes], dev, params, card) -> int:
         check(tc.LAUNCHES == tc.BATCHED_LAUNCHES == 4 * runs,
               f"S={s}: {tc.LAUNCHES} launches ({tc.BATCHED_LAUNCHES} "
               f"batched) in {runs} runs, want 4 batched per run")
-        launches = tc.BATCHED_LAUNCHES
+        launches, per_run = tc.BATCHED_LAUNCHES, tc.BATCHED_LAUNCHES // runs
         seq, seq_walls = timed_runs(
             lambda: [transcode_bytes(d, dev, params) for d in datas])
         wall, seq_wall = statistics.median(walls), statistics.median(
@@ -301,7 +289,7 @@ def multistream_phase(streams: list[bytes], dev, params, card) -> int:
               bytes_equal=outs == seq, card=repr(card))
         check(outs == seq, f"S={s}: batched output differs from the "
                            f"sequential port")
-    return launches
+    return launches, per_run
 
 
 def multistream_mc_intra_phase(data_mi: bytes, dev, params, card) -> None:
@@ -449,22 +437,21 @@ def main() -> int:
           bytes=len(data), seconds=f"{time.perf_counter() - t0:.3f}")
 
     # 3. kernel against the plain version on the card
-    qs = lambda qp: float(np.float32(rbv.qstep_of(qp)))  # noqa: E731
     rng = np.random.default_rng(0)
     cases = []
     for gop in (1, 2, 4):
         c = rng.integers(-60, 60, size=(4, 3, 4, 16, 16)).astype(np.int16)
         cases.append((f"random_gop{gop}", torch.from_numpy(c).to(dev),
-                      qs(16), qs(32), 1023.0, gop, gop))
+                      qstep(16), qstep(32), 1023.0, gop, gop))
     coeffs = stream_coeffs(data, dev)
     luma, chroma = coeffs[("GEOMETRY", 0)], coeffs[("ATTRIBUTE", 1)]
     check(tuple(luma.shape) == (32, 64, 64, 16, 16), f"luma {luma.shape}")
     check(tuple(chroma.shape) == (32, 32, 32, 16, 16),
           f"chroma {chroma.shape}")
     cases += [
-        ("luma", luma, qs(16), qs(GEO_QP), 1023.0, 2, 2),
-        ("chroma", chroma, qs(22), qs(ATTR_QP), 255.0, 2, 2),
-        ("luma_gop2to1", luma, qs(16), qs(GEO_QP), 1023.0, 2, 1),
+        ("luma", luma, qstep(16), qstep(GEO_QP), 1023.0, 2, 2),
+        ("chroma", chroma, qstep(22), qstep(ATTR_QP), 255.0, 2, 2),
+        ("luma_gop2to1", luma, qstep(16), qstep(GEO_QP), 1023.0, 2, 1),
     ]
     max_abs_err = 0
     times = {}
@@ -475,14 +462,19 @@ def main() -> int:
         want = tc.transcode_coeffs_ref(*args)
         share, diff = compare(got, want)
         max_abs_err = max(max_abs_err, diff)
-        k_ms = median_ms(lambda: tc.transcode_coeffs(*args))
+        k_ms, k_dev = kernel_times(lambda: tc.transcode_coeffs(*args))
         p_ms = median_ms(lambda: tc.transcode_coeffs_ref(*args))
         bound, by = tc.transcode_bound_ms(tuple(c.shape), gop_out)
-        times[name] = (k_ms, p_ms, bound, by)
+        dense, _ = tc.transcode_bound_ms(tuple(c.shape), gop_out,
+                                         dense=True)
+        times[name] = (k_ms, k_dev, p_ms, bound, by, dense)
         phase("kernel", case=name, shape=tuple(c.shape), share=share,
               max_abs_diff=diff, kernel_ms=f"{k_ms:.4f}",
-              plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
-              bound_share=f"{bound / k_ms:.4f}", card=repr(card))
+              device_ms=f"{k_dev:.4f}", plain_ms=f"{p_ms:.4f}",
+              bound_ms=f"{bound:.4f}", bound_by=by,
+              bound_share=f"{bound / k_ms:.4f}",
+              device_bound_share=f"{bound / k_dev:.4f}",
+              dense_bound_ms=f"{dense:.4f}", card=repr(card))
         check(share == 0 and diff == 0,
               f"{name}: kernel vs plain: share {share}, |diff| {diff}")
 
@@ -503,7 +495,8 @@ def main() -> int:
 
     tc.LAUNCHES = 0
     walls = []
-    for i in range(4):  # one warm-up, then 3 timed runs
+    runs = 4  # one warm-up, then 3 timed runs, one GOF each
+    for i in range(runs):
         before = tc.LAUNCHES
         t0 = time.perf_counter()
         out = run(dev)
@@ -513,6 +506,7 @@ def main() -> int:
         if i:
             walls.append(wall)
     launches = tc.LAUNCHES
+    launches_per_gof = launches // runs
     main_out_bytes = len(out)
     wall = statistics.median(walls)
     phase("main_path", runs=len(walls), wall_s=repr(walls),
@@ -571,7 +565,8 @@ def main() -> int:
           bytes=[len(d) for d in streams],
           seconds=f"{time.perf_counter() - t0:.3f}")
     batched = batched_kernel_phase(streams, dev, card)
-    batched["launches"] = multistream_phase(streams, dev, params, card)
+    batched["launches"], batched["launches_per_gof"] = multistream_phase(
+        streams, dev, params, card)
     multistream_mc_intra_phase(data_mi, dev, params, card)
 
     # 11. lossless input with occupancy, a predicted map pair, ABR
@@ -589,17 +584,17 @@ def main() -> int:
     stream_app_phase(streams, dev, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
-    k_ms, p_ms, bound, by = times["luma"]
+    k_ms, k_dev, p_ms, bound, by, dense = times["luma"]
     print(json.dumps({"kernels": [{
         "name": "transcode_gops", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "bound_share": bound / k_ms, "launches_per_gof": LAUNCHES_PER_GOF,
+        "bound_share": bound / k_ms, "launches_per_gof": launches_per_gof,
+        "device_ms": k_dev, "dense_bound_ms": dense,
     }, {
         "name": "transcode_gops_batched", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES, **batched,
-        "launches_per_gof": LAUNCHES_PER_GOF,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

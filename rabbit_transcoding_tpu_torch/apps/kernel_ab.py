@@ -16,7 +16,9 @@ data (its division takes a slow path on some inputs), so random
 coefficients are not a stand-in.  At each shape every output must equal
 the plain PyTorch version bit for bit; then they are timed in turns (the
 others, this, this, the others in reverse), each a median of 20 launches
-after 3 warm-ups, by CUDA events, beside the shape's bound
+after 3 warm-ups by CUDA events (``ops/events.py``), twice: around the
+whole call (``ms``, as ``chip_smoke.py`` times it) and of the device work
+alone (``device_ms``), beside the shape's bound and its dense count
 (``ops.transcode.transcode_bound_ms``).  Prints one line per shape and
 build, and for each build ptxas's report and the instruction mix of the
 kernel's frame loop (``cuobjdump -sass``); needs a CUDA card.
@@ -36,8 +38,9 @@ import torch
 
 from ..ops import _build
 from ..ops import transcode as tc
-from ..ops.dct import dct_tensor
-from ..ops.rbv_tools import DZ_INTER, DZ_INTRA
+from ..ops.events import median_ms
+from ..testdata import make_stream, stream_coeffs, with_input_qps
+from ..video import rbv
 
 # (name, (video type, plane), input QPs, output QP, maxval): the main
 # path's planes
@@ -49,112 +52,46 @@ PLANES = (
 
 
 def _qs(qp: int) -> float:
-    return float(np.float32(2.0 ** ((qp - 4.0) / 6.0)))
-
-
-def plane_coeffs(data: bytes, device) -> dict:
-    """{(video type name, plane): int16 coefficients on ``device``} of the
-    lossy RBV planes of a V3C stream's first GOF."""
-    from ..transcoder import ColorFormat, V3CReader, VideoType
-    from ..video import rbv
-
-    reader = V3CReader()
-    atlas = reader.decode(reader.read(data)[0]).atlas(0)
-    out = {}
-    for vt, vb in atlas.video_bitstreams.items():
-        if vt == VideoType.OCCUPANCY or rbv.probe(vb.data)["lossless"]:
-            continue
-        flags, w, h, _, chroma, f, b, gop, _ = rbv._parse_header(vb.data)
-        dims = rbv._plane_dims(w, h, ColorFormat(chroma))
-        for k, ((ph, pw), blob) in enumerate(
-                zip(dims, rbv._iter_blobs(vb.data, len(dims)))):
-            out[(vt.name, k)] = rbv._Plane(blob, flags, f, ph, pw, b, gop,
-                                           device).q
-    return out
+    return float(np.float32(rbv.qstep_of(qp)))
 
 
 def main_path_inputs(device) -> dict:
     """{name: coefficients} for PLANES, from the main path's stream."""
-    from ..testdata import make_stream, with_input_qps
-
     data = make_stream(32, 1024, 1024, device=device)
-    planes = plane_coeffs(data, device)
-    streams = [plane_coeffs(with_input_qps(data, q, q + 6, device),
-                            device)[("GEOMETRY", 0)]
+    planes = stream_coeffs(data, device)
+    streams = [stream_coeffs(with_input_qps(data, q, q + 6, device),
+                             device)[("GEOMETRY", 0)]
                for q in PLANES[2][2]]
     return {"luma": planes[PLANES[0][1]], "chroma": planes[PLANES[1][1]],
             "luma_s4": torch.stack(streams)}
 
 
-def _launcher(lib, c: torch.Tensor, qps_in, qp_out: int, maxval: float):
-    """A function that launches ``lib``'s kernel on ``c`` -> a new output
-    tensor (the single-stream entry point for 5-D input, else the batched
-    one)."""
-    dev = c.device
-    dmat = dct_tensor(16, dev)
-    out = torch.empty_like(c)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    n_blocks = c.shape[-4] * c.shape[-3]
-    # the tensors whose addresses the launch takes, kept alive by ``run``
-    keep = [c, out, dmat]
+def _steps(c: torch.Tensor, qps_in, qp_out: int):
+    """(qs_in, qs_out): floats for one stream, per-stream tensors for S."""
     if c.dim() == 5:
-        args = (c.data_ptr(), out.data_ptr(), dmat.data_ptr(), c.shape[0],
-                n_blocks, 2, 2, _qs(qps_in[0]), _qs(qp_out), maxval,
-                DZ_INTRA, DZ_INTER, dev.index, stream)
-        entry = lib.rbv_transcode_gops
-    else:
-        keep += [torch.tensor([_qs(q) for q in qps_in], device=dev),
-                 torch.full((c.shape[0],), _qs(qp_out), device=dev)]
-        args = (c.data_ptr(), out.data_ptr(), dmat.data_ptr(), c.shape[0],
-                c.shape[1], n_blocks, 2, 2, keep[3].data_ptr(),
-                keep[4].data_ptr(), maxval, DZ_INTRA, DZ_INTER, dev.index,
-                stream)
-        entry = lib.rbv_transcode_gops_batched
+        return _qs(qps_in[0]), _qs(qp_out)
+    return (torch.tensor([_qs(q) for q in qps_in], device=c.device),
+            torch.full((c.shape[0],), _qs(qp_out), device=c.device))
+
+
+def _launcher(lib, c: torch.Tensor, qps_in, qp_out: int, maxval: float):
+    """A function that launches ``lib``'s kernel on ``c`` through
+    ``ops.transcode.launch`` -> its output tensor."""
+    out = torch.empty_like(c)
+    qs_in, qs_out = _steps(c, qps_in, qp_out)
 
     def run() -> torch.Tensor:
-        err = entry(*args)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err} "
-                               f"({lib.rbv_cuda_error_string(err).decode()})")
+        tc.launch(c, out, qs_in, qs_out, maxval, 2, 2, lib=lib)
         return out
 
-    run.tensors = keep
     return run
 
 
 def _plain(c: torch.Tensor, qps_in, qp_out: int, maxval: float):
+    qs_in, qs_out = _steps(c, qps_in, qp_out)
     if c.dim() == 5:
-        return tc.transcode_coeffs_ref(c, _qs(qps_in[0]), _qs(qp_out),
-                                       maxval, 2, 2)
-    qs_in = torch.tensor([_qs(q) for q in qps_in], device=c.device)
-    qs_out = torch.full((c.shape[0],), _qs(qp_out), device=c.device)
+        return tc.transcode_coeffs_ref(c, qs_in, qs_out, maxval, 2, 2)
     return tc.transcode_coeffs_batched_ref(c, qs_in, qs_out, maxval, 2, 2)
-
-
-# cycles the card spins before each timed call (~2.5 ms on an H100)
-SPIN_CYCLES = 5_000_000
-
-
-def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Device milliseconds of ``fn()``: the median of ``n`` calls after
-    ``warmup``, each between two CUDA events.  The card spins before each
-    call, so the host has enqueued ``fn``'s work by the time the first event
-    runs: the events time the device work, not the Python launch overhead
-    (~20-40 us per wrapper call)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def sass_mix(library: Path) -> dict:
@@ -236,15 +173,25 @@ def main(argv=None) -> int:
                  for k, fn in run.items()}
         ok &= all(equal.values())
         times = {k: [] for k in libs}
+        device_times = {k: [] for k in libs}
         for k in others + ["this", "this"] + others[::-1]:
             times[k].append(median_ms(run[k]))
+            device_times[k].append(median_ms(run[k], device_only=True))
         bound, by = tc.transcode_bound_ms(shape, 2)
+        dense, _ = tc.transcode_bound_ms(shape, 2, dense=True)
         this_ms = statistics.mean(times["this"])
+        this_dev = statistics.mean(device_times["this"])
         for k in libs:
             ms = statistics.mean(times[k])
+            dev_ms = statistics.mean(device_times[k])
             emit(f"{name} {k} shape={shape} equal_to_plain={equal[k]} "
-                 f"ms={times[k]!r} bound_ms={bound:.6f} bound_by={by} "
-                 f"share={bound / ms:.4f} this_speedup={ms / this_ms:.3f}")
+                 f"ms={times[k]!r} device_ms={device_times[k]!r} "
+                 f"bound_ms={bound:.6f} bound_by={by} "
+                 f"dense_bound_ms={dense:.6f} share={bound / ms:.4f} "
+                 f"device_share={bound / dev_ms:.4f} "
+                 f"dense_share={dense / ms:.4f} "
+                 f"this_speedup={ms / this_ms:.3f} "
+                 f"this_device_speedup={dev_ms / this_dev:.3f}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")

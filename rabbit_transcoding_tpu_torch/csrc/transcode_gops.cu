@@ -32,10 +32,15 @@
 // the fp32 CUDA cores.
 //
 // Bound.  At the main path's luma plane (32 frames of 64x64 blocks, GOP 2
-// to GOP 2) the 80 transforms per block (32 decode IDCTs, 32 DCTs, 16
-// closed-loop IDCTs) are 2.68 G FMA: 80 us at the 67 TFLOP/s fp32 peak of an
-// H100 SXM.  Device memory (each coefficient read and written once, 134 MB)
-// takes 40 us at 3.35 TB/s.  So fp32 instruction throughput bounds it.
+// to GOP 2) there are 80 transforms per block (32 decode IDCTs, 32 DCTs, 16
+// closed-loop IDCTs).  Counted densely (2 x 16^3 FMAs each) they are 2.68 G
+// FMA, 80 us at the 67 TFLOP/s fp32 peak of an H100 SXM.  But chains of
+// equal or opposite coefficients give equal or opposite sums bit for bit,
+// so the function needs fewer operations: 213 FLOP per row of a product
+// with D^T, 468 per row of one with D, with the sums of the partial sums
+// (ops/transcode.py:row_flops), 49 us.  Device memory (each coefficient
+// read and written once, 134 MB) takes 40 us at 3.35 TB/s.  So fp32
+// arithmetic bounds it.
 //
 // Design.  The earlier one (a CTA of 256 threads per block position, one
 // pixel per thread, one shared-memory load per FMA, ten CTA-wide barriers
@@ -55,30 +60,35 @@
 //   as an immediate: no load at all.  (With D as a kernel argument, ptxas
 //   loaded each value with an LDC before its FMA, and those loads held the
 //   kernel at ~20% of the bound.)
-// * A product along the row a thread owns (the right product) is 256 FMAs
-//   on registers.  The left product contracts over the other index, so the
-//   block is transposed first through a per-half-warp shared tile: four
-//   16-byte stores of the thread's row, sixteen 4-byte loads of its
-//   column.  Each transform is transpose -> 256 FMAs -> transpose -> 256
-//   FMAs, ~13 FMAs per shared-memory instruction instead of 1.  Rows of 20
+// * A product along the row a thread owns (the right product) is FMAs on
+//   registers: 256 with D, 128 with D^T (mul_dt).  The left product
+//   contracts over the other index, so the block is transposed first
+//   through a per-half-warp shared tile: four 16-byte stores of the
+//   thread's row, sixteen 4-byte loads of its column.  Each transform is
+//   transpose -> product -> transpose -> product, 8-13 FMAs per
+//   shared-memory instruction instead of 1.  Rows of 20
 //   floats and a 16-float offset between the two half-warps' tiles keep
 //   both the stores and the loads free of bank conflicts.  Two tiles are
 //   used in turn, so one __syncwarp per transpose orders them; there is no
 //   CTA-wide barrier.
 // * Global memory: a row of 16 int16 is two 16-byte loads and two 16-byte
 //   stores; the next frame's row is loaded one frame ahead into registers.
-// * The ragged edge: units past the last one compute on zeros and store
-//   nothing (they still take part in __syncwarp); warps wholly past it
+// * The ragged edge: a unit past the last one computes on zeros, and a
+//   frame past the end of a short last segment recomputes the previous
+//   frame's row (nothing is loaded for it); neither stores anything, and
+//   both still take part in __syncwarp.  Warps wholly past the last unit
 //   return at once.
-// What bounds it now: instruction throughput.  The frame loop holds 2,266
-// instructions, 1,268 of them FFMA (fewer than 3 x 512: ptxas shares equal
-// partial products, e.g. those of D's constant first row); the rest are the
-// 3 adds per output that combine the partial sums, the IEEE division (~10
-// instructions per pixel), rounding, clamps, conversions and the
-// transposes.  The closed-loop IDCT runs every other frame at GOP 2, so
-// ~2,000 instructions per thread and frame against the bound's 1,280 FMAs.  Measured on an H100 80GB HBM3 at 700 W
-// (apps/kernel_ab.py): ~0.16 ms at the main path's luma plane, about half
-// of the FMA bound, 96 registers, no spills.
+// What bounds it now: instruction issue.  The frame loop holds 2,011
+// instructions: 1,012 FFMA and 32 FMUL (ptxas shares a few more equal
+// partial products, e.g. those of D's constant first row, but not the 35
+// per row of a product with D^T that row_flops counts as shareable), 352
+// FADD (mostly the 3 adds per output that combine the partial sums), the
+// IEEE division (~10 instructions per pixel), rounding, clamps,
+// conversions and the transposes (96 LDS, 24 STS).  The closed-loop IDCT
+// runs every other frame at GOP 2.  Measured on an H100 80GB HBM3 at
+// 700 W (apps/kernel_ab.py, chip_smoke.py): ~0.14 ms of device time at the
+// main path's luma plane (~0.16 ms around the wrapper call), a third of
+// the 49 us bound, 96 registers, no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -175,11 +185,16 @@ __host__ __device__ __forceinline__ float dct(int row, int col) {
 }
 
 // out[x] = sum_k D[k][x] v[k]: both products of the IDCT (the left one
-// D^T C on a column of C, the right one T D on a row of T).
+// D^T C on a column of C, the right one T D on a row of T).  D[k][15 - x] =
+// (-1)^k D[k][x], and the partial sum s_r runs over k = r (mod 4), all of
+// r's parity, so the partial sums of out[15 - x] are s0, -s1, s2, -s3 bit
+// for bit (rounding to nearest is symmetric; only the sign of a zero sum
+// can differ, and no later step turns a zero's sign into a value): half
+// the FMAs.
 __device__ __forceinline__ void mul_dt(const float (&v)[kB],
                                        float (&out)[kB]) {
 #pragma unroll
-  for (int x = 0; x < kB; ++x) {
+  for (int x = 0; x < kB / 2; ++x) {
     float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
     for (int k = 0; k < kB; k += 4) {
@@ -189,6 +204,7 @@ __device__ __forceinline__ void mul_dt(const float (&v)[kB],
       s3 = fmaf(dct(k + 3, x), v[k + 3], s3);
     }
     out[x] = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+    out[kB - 1 - x] = __fadd_rn(__fsub_rn(s0, s1), __fsub_rn(s2, s3));
   }
 }
 
@@ -232,8 +248,9 @@ __device__ __forceinline__ float clip_round(float x, float maxval) {
 // clamp(sign(c) * floor(|c| / qs + dz), -32767, 32767): floor(...) >= 0,
 // so it is clamped above and then takes c's sign (a -0 never changes a
 // later sum, which starts from +0).  c = 0 gives floor(dz) = 0 without the
-// division: a zero dividend sends __fdiv_rn down its slow path, and exact
-// zeros are common (flat blocks, P-frame residuals of static content).
+// division (launch() takes only 0 <= dz < 1): a zero dividend sends
+// __fdiv_rn down its slow path, and exact zeros are common (flat blocks,
+// P-frame residuals of static content).
 __device__ __forceinline__ float quantize(float c, float qs, float dz) {
   const float a = fabsf(c);
   const float q = __fdiv_rn(a != 0.f ? a : qs, qs);
@@ -262,9 +279,9 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 // the segments are independent (16 per block position at GOP 2 over 32
 // frames), which gives the card 16x more warps than one per block.  Units
 // run block-major within a segment, so a warp's two half-warps read
-// neighbouring blocks.  Every thread runs seg_len iterations (a frame past
-// the end, or a unit past n_units, computes on zeros and stores nothing),
-// so the warp's __syncwarp calls always match.
+// neighbouring blocks.  Every thread runs seg_len iterations (a unit past
+// n_units computes on zeros, a frame past the end on the previous frame's
+// row; neither stores), so the warp's __syncwarp calls always match.
 // qs_in_s / qs_out_s: per-stream steps (S,) in device memory, or null for
 // one stream at the scalar steps qs_in / qs_out.
 __global__ void __launch_bounds__(kThreads)
@@ -405,6 +422,11 @@ int launch(const void* in, void* out, const void* dmat, int streams,
       gop_in <= 0 || gop_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // quantize() maps c = 0 to 0, which is floor(dz) only for 0 <= dz < 1
+  if (!(dz_intra >= 0.f && dz_intra < 1.f && dz_inter >= 0.f &&
+        dz_inter < 1.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // both chains restart every lcm(gop_in, gop_out) frames
   int64_t gcd = gop_in;
   for (int64_t b = gop_out; b != 0;) {
@@ -460,8 +482,9 @@ int launch(const void* in, void* out, const void* dmat, int streams,
 // live on CUDA device `device`.  This library links its own CUDA runtime,
 // so it selects `device` for the launch itself and then restores the
 // thread's current device (which the caller's runtime shares).  Launches on
-// `stream` and returns the cudaError_t (0 on success); never synchronises,
-// except that the process's first launch copies dmat to the host.
+// `stream` and returns the cudaError_t (0 on success; cudaErrorInvalidValue
+// for a dead zone outside [0, 1)); never synchronises, except that the
+// process's first launch copies dmat to the host.
 extern "C" int rbv_transcode_gops(const void* in, void* out, const void* dmat,
                                   int frames, int n_blocks, int gop_in,
                                   int gop_out, float qs_in, float qs_out,

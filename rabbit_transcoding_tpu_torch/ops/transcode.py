@@ -26,6 +26,7 @@ float32 pixel blocks).  Numerics: fp32, round half to even, a true division
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 
@@ -34,7 +35,8 @@ import torch
 
 from . import _build
 from . import rbv_tools as tools
-from .dct import blockify, dct2d, dct_tensor, deblockify, idct2d
+from .dct import (blockify, dct2d, dct_matrix, dct_tensor, deblockify,
+                  idct2d)
 from .rbv_tools import DZ_INTER, DZ_INTRA, qstep_for, quantize, scalar
 
 # kernel launches made by transcode_coeffs and transcode_coeffs_batched, and
@@ -252,18 +254,57 @@ H100_FP32_FLOPS = 67e12
 H100_BYTES_PER_S = 3.35e12
 
 
-def transcode_bound_ms(shape: tuple, gop_out: int) -> tuple[float, str]:
+@functools.lru_cache(maxsize=None)
+def row_flops() -> tuple[int, int]:
+    """FLOPs of one 16-value row of a 16-term product as the kernel and the
+    plain version compute it bit for bit: (a product with D^T, as in the
+    IDCT; a product with D, as in the DCT).
+
+    Every output is (s0 + s1) + (s2 + s3), s_r a chain of 4 FMAs over the
+    inputs k = r (mod 4), the first one a product.  Two outputs' chains over
+    the same inputs whose coefficient prefixes are equal, or equal but for
+    their sign, give equal or opposite values bit for bit (rounding to
+    nearest is symmetric), so the function needs each distinct prefix once:
+    1 FLOP for a first product, 2 for each later FMA; and 1 FLOP for each
+    distinct pair sum and total."""
+    d = dct_matrix(16)
+
+    def canon(seq) -> tuple:
+        s = tuple(float(c) for c in seq)
+        return min(s, tuple(-c for c in s))
+
+    def count(coef) -> int:
+        prods, sums = set(), set()
+        for x in range(16):
+            chains = [[coef(x, k) for k in range(r, 16, 4)]
+                      for r in range(4)]
+            for r, chain in enumerate(chains):
+                prods.update((r, canon(chain[:j])) for j in range(1, 5))
+            sums.update({("01", canon(chains[0] + chains[1])),
+                         ("23", canon(chains[2] + chains[3])),
+                         ("all", canon(sum(chains, [])))})
+        firsts = sum(1 for _, p in prods if len(p) == 1)
+        return 2 * len(prods) - firsts + len(sums)
+
+    return count(lambda x, k: d[k, x]), count(lambda x, k: d[x, k])
+
+
+def transcode_bound_ms(shape: tuple, gop_out: int,
+                       dense: bool = False) -> tuple[float, str]:
     """The least time an H100 could take for the fused transcode of int16
     coefficients of ``shape`` ((S,) F, nby, nbx, 16, 16) -> (ms, "operations"
-    or "bytes").  Operations: the FMAs of the transforms this input needs,
-    2 x 16^3 per transform and block (one IDCT and one DCT per frame, one
-    closed-loop IDCT per frame that a later frame of its output GOP
-    predicts from), 2 FLOP each; bytes: each coefficient read once and
-    written once."""
+    or "bytes").  Operations: the FLOPs of the transforms this input needs
+    (one IDCT and one DCT per frame, one closed-loop IDCT per frame that a
+    later frame of its output GOP predicts from; two products of 16 rows
+    each), each row counted by ``row_flops``, or with ``dense`` as 256 FMAs
+    of 2 FLOP (16^3 per product, equal partial products not shared, the
+    sums of the partial sums not counted); bytes: each coefficient read once
+    and written once."""
     f, nby, nbx = shape[-5:-2]
     blocks = math.prod(shape[:-5]) * nby * nbx
     recons = sum(1 for i in range(f - 1) if (i + 1) % gop_out)
-    flops = blocks * (2 * f + recons) * 2 * 16 ** 3 * 2
+    idct_row, dct_row = (512, 512) if dense else row_flops()
+    flops = blocks * 2 * 16 * ((f + recons) * idct_row + f * dct_row)
     byte_ms = 2 * 2 * math.prod(shape) / H100_BYTES_PER_S * 1e3
     flop_ms = flops / H100_FP32_FLOPS * 1e3
     return (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms,
@@ -293,19 +334,30 @@ def _check_kernel_input(coeffs: torch.Tensor, lead: tuple[str, ...],
         raise ValueError(f"GOP sizes must be >= 1, got {gop_in}, {gop_out}")
 
 
-def _launch(entry: str, coeffs: torch.Tensor, out: torch.Tensor,
-            *args) -> None:
-    """Launch ``entry`` of the kernel library on ``coeffs`` -> ``out`` (the
-    DCT matrix, then ``args``, then the device index and the current CUDA
-    stream) and count the launch."""
-    lib = _build.library()
+def launch(coeffs: torch.Tensor, out: torch.Tensor, qs_in, qs_out,
+           maxval: float, gop_in: int, gop_out: int, lib=None) -> None:
+    """Launch the kernel of ``lib`` (default: the package's build) on checked
+    ``coeffs`` -> ``out`` on the current CUDA stream and count the launch:
+    the single-stream entry point for (F, nby, nbx, 16, 16) input at float
+    steps, the stream axis for (S, F, ...) input at per-stream step
+    tensors."""
+    lib = lib or _build.library()
+    if coeffs.dim() == 5:
+        f, nby, nbx = coeffs.shape[:3]
+        entry = "rbv_transcode_gops"
+        args = (f, nby * nbx, gop_in, gop_out, qs_in, qs_out)
+    else:
+        s, f, nby, nbx = coeffs.shape[:4]
+        entry = "rbv_transcode_gops_batched"
+        args = (s, f, nby * nbx, gop_in, gop_out, qs_in.data_ptr(),
+                qs_out.data_ptr())
     index = coeffs.device.index
     if index is None:
         index = torch.cuda.current_device()
     err = getattr(lib, entry)(
         coeffs.data_ptr(), out.data_ptr(),
-        dct_tensor(16, coeffs.device).data_ptr(), *args, index,
-        torch.cuda.current_stream(index).cuda_stream,
+        dct_tensor(16, coeffs.device).data_ptr(), *args, maxval, DZ_INTRA,
+        DZ_INTER, index, torch.cuda.current_stream(index).cuda_stream,
     )
     if err:
         raise RuntimeError(
@@ -327,11 +379,9 @@ def transcode_coeffs(coeffs: torch.Tensor, qs_in: float, qs_out: float,
         return transcode_coeffs_ref(coeffs, qs_in, qs_out, maxval, gop_in,
                                     gop_out)
     _check_kernel_input(coeffs, ("F",), gop_in, gop_out)
-    f, nby, nbx = coeffs.shape[:3]
     out = torch.empty_like(coeffs)
     if out.numel():
-        _launch("rbv_transcode_gops", coeffs, out, f, nby * nbx, gop_in,
-                gop_out, qs_in, qs_out, maxval, DZ_INTRA, DZ_INTER)
+        launch(coeffs, out, qs_in, qs_out, maxval, gop_in, gop_out)
     return out
 
 
@@ -346,7 +396,7 @@ def transcode_coeffs_batched(coeffs: torch.Tensor, qs_in: torch.Tensor,
         return transcode_coeffs_batched_ref(coeffs, qs_in, qs_out, maxval,
                                             gop_in, gop_out)
     _check_kernel_input(coeffs, ("S", "F"), gop_in, gop_out)
-    s, f, nby, nbx = coeffs.shape[:4]
+    s = coeffs.shape[0]
     for qs in (qs_in, qs_out):
         if (qs.dtype != torch.float32 or tuple(qs.shape) != (s,)
                 or qs.device != coeffs.device or not qs.is_contiguous()):
@@ -356,7 +406,5 @@ def transcode_coeffs_batched(coeffs: torch.Tensor, qs_in: torch.Tensor,
                 f"{qs.device}")
     out = torch.empty_like(coeffs)
     if out.numel():
-        _launch("rbv_transcode_gops_batched", coeffs, out, s, f, nby * nbx,
-                gop_in, gop_out, qs_in.data_ptr(), qs_out.data_ptr(), maxval,
-                DZ_INTRA, DZ_INTER)
+        launch(coeffs, out, qs_in, qs_out, maxval, gop_in, gop_out)
     return out

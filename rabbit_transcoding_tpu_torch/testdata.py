@@ -175,3 +175,30 @@ def with_input_qps(data: bytes, geometry_qp: int, attribute_qp: int,
             vt, rbv.requantize(vb.data, qp, device=device)))
     writer = V3CWriter()
     return writer.write(writer.encode(context))
+
+
+def stream_planes(data: bytes, device=torch.device("cpu")) -> dict:
+    """{(video type name, plane): the plane's sections} of the lossy RBV
+    planes of a V3C stream's first GOF: int16 coefficients ``q`` on
+    ``device``, intra mode maps ``mode`` and motion vectors ``mv`` (None
+    when the stream has none)."""
+    reader = V3CReader()
+    atlas = reader.decode(reader.read(data)[0]).atlas(0)
+    out = {}
+    for vt, vb in sorted(atlas.video_bitstreams.items(),
+                         key=lambda kv: kv[0].value):
+        if vt == VideoType.OCCUPANCY or rbv.probe(vb.data)["lossless"]:
+            continue
+        flags, w, h, _, chroma, f, b, gop, _ = rbv._parse_header(vb.data)
+        dims = rbv._plane_dims(w, h, ColorFormat(chroma))
+        for k, ((ph, pw), blob) in enumerate(
+                zip(dims, rbv._iter_blobs(vb.data, len(dims)))):
+            out[(vt.name, k)] = rbv._Plane(blob, flags, f, ph, pw, b, gop,
+                                           device)
+    return out
+
+
+def stream_coeffs(data: bytes, device=torch.device("cpu")) -> dict:
+    """{(video type name, plane): int16 coefficients} of the lossy RBV
+    planes of a V3C stream's first GOF."""
+    return {k: p.q for k, p in stream_planes(data, device).items()}

@@ -311,6 +311,31 @@ def test_kernel_rejects_misaligned_input(cuda):
         tc.transcode_coeffs(c, 1.0, 2.0, 255.0, 1, 1)
 
 
+def test_kernel_rejects_dead_zones_outside_0_1(cuda):
+    # the kernel quantises an exact zero to 0 without the division, which is
+    # floor(dz) only for 0 <= dz < 1: the C entry point refuses other zones
+    from rabbit_transcoding_tpu_torch.ops import _build
+    from rabbit_transcoding_tpu_torch.ops.dct import dct_tensor
+
+    c = _coeffs(cuda, (2, 1, 1, 16, 16), seed=3)
+    out = torch.empty_like(c)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    index = torch.cuda.current_device()
+    for dz_intra, dz_inter in ((1.0, 0.25), (0.5, -0.25), (0.5, 1.5)):
+        err = lib.rbv_transcode_gops(
+            c.data_ptr(), out.data_ptr(), dct_tensor(16, cuda).data_ptr(), 2,
+            1, 2, 2, _qs(16), _qs(32), 1023.0, dz_intra, dz_inter, index,
+            stream)
+        assert lib.rbv_cuda_error_string(err).decode() == "invalid argument"
+    assert lib.rbv_transcode_gops(
+        c.data_ptr(), out.data_ptr(), dct_tensor(16, cuda).data_ptr(), 2, 1,
+        2, 2, _qs(16), _qs(32), 1023.0, 0.5, 1.0 / 3.0, index, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, tc.transcode_coeffs_ref(c, _qs(16), _qs(32),
+                                                    1023.0, 2, 2))
+
+
 def test_entry_points_default_to_the_card(cuda):
     from rabbit_transcoding_tpu_torch.transcoder import (
         MultiStreamTranscoder, Transcoder)

@@ -167,3 +167,30 @@ def test_kernel_dct_literals_are_the_package_matrix():
     assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()
     np.testing.assert_array_equal(want, np.asarray(ref_dct_matrix(16)
                                                    ).reshape(-1))
+
+
+def test_dct_matrix_symmetry_that_the_kernel_shares():
+    # the kernel's products with D^T compute out[15 - x] from out[x]'s
+    # partial sums: D[k][15 - x] = (-1)^k D[k][x] bit for bit
+    from rabbit_transcoding_tpu_torch.ops.dct import dct_matrix
+
+    d = dct_matrix(16)
+    sign = np.where(np.arange(16) % 2, -1, 1).astype(np.float32)[:, None]
+    assert (d[:, ::-1] * sign).view(np.uint32).tolist() == \
+        d.view(np.uint32).tolist()
+
+
+def test_transcode_bound_counts():
+    luma = (32, 64, 64, 16, 16)
+    dense_ms, by = tc.transcode_bound_ms(luma, 2, dense=True)
+    assert by == "operations" and abs(dense_ms - 0.08013) < 1e-5
+    # distinct chains: half of a D^T row's products are its mirror's, and D's
+    # first and middle rows share theirs
+    assert tc.row_flops() == (213, 468)
+    ms, by = tc.transcode_bound_ms(luma, 2)
+    assert by == "operations" and abs(ms - 0.04930) < 1e-5
+    # S streams: S times the work
+    s4, _ = tc.transcode_bound_ms((4,) + luma, 2)
+    assert abs(s4 - 4 * ms) < 1e-9
+    # one frame per GOP: no closed-loop IDCT; bytes bound a tiny plane
+    assert tc.transcode_bound_ms(luma, 1)[0] < ms
