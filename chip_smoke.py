@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode
+and the V-PCC decode.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -50,7 +51,25 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     4's output bit rate at 30 fps), each at 1024x1024, timed, and held
     against a ``device=cpu`` run at 256x256, 8 frames;
 12. stream app: ``transcode_streams_sharded`` over 2 streams x 2 GOFs equals
-    ``transcode_stream`` on each, with no batched-round failure.
+    ``transcode_stream`` on each, with no batched-round failure;
+13. decode streams: the patch-carrying stream (256 patches per frame, both
+    smoothing SEIs) at 1024x1024, 32 frames, built on the card, and the same
+    with the MC + intra coding tools;
+14. decode: ``Decoder(device=cuda).decode`` of that GOF, one warm-up and 3
+    timed runs: decode frames/s, the decoder's stages, points per frame and
+    the clouds' checksums; two runs give equal clouds (arrays, in order);
+    the MC + intra stream once for its time.  Held against ``device=cpu``
+    at 256x256, 8 frames, and at full size when the small CPU run predicts
+    under a minute for it: positions, types and partition equal exactly;
+    colours may differ at a share of points of at most 1e-4, and only at
+    points the smoothing filters may move;
+15. decode, map pair: the dual-map stream against ``device=cpu`` at 256x256,
+    8 frames, and once at full size for its time;
+16. transcode, then decode: phase 4's transcoded videos under the patch
+    stream's atlas, decoded; the point count and the share of points at a
+    position that the input's decode does not have;
+17. decode app: ``apps/decode.py --device=cuda`` on the stream file, PLYs
+    written, checksums equal to the library call's.
 
 The kernel table as JSON and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
@@ -59,7 +78,11 @@ which imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -73,7 +96,12 @@ import rabbit_transcoding_tpu_torch
 from rabbit_transcoding_tpu_torch import native
 from rabbit_transcoding_tpu_torch.ops import _build
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
+from rabbit_transcoding_tpu_torch.apps import decode as decode_app
 from rabbit_transcoding_tpu_torch.apps import stream as stream_app
+from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import (
+    VideoBitstream,
+)
+from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
 from rabbit_transcoding_tpu_torch.ops.events import median_ms
 from rabbit_transcoding_tpu_torch.testdata import (
     make_stream, stream_coeffs, stream_planes, with_input_qps,
@@ -101,6 +129,11 @@ STREAM_QPS = (16, 18, 20, 22)
 # the reduced size of the CPU runs that the lossless, map-pair and ABR
 # phases are held against
 SMALL = (8, 256, 256)
+# share of points whose colour the GPU decode may give differently from the
+# CPU decode (the gated colour filter adds non-integer luma sums per cell)
+MAX_COLOR_SHARE = 1e-4
+# a full-size CPU decode is run when the small one predicts less than this
+CPU_FULL_LIMIT_S = 60.0
 
 
 def phase(name: str, **fields) -> None:
@@ -399,6 +432,196 @@ def stream_app_phase(streams: list[bytes], dev, card) -> None:
           f"stream app: {tc.BATCHED_LAUNCHES} batched launches, want 8")
 
 
+def decode_clouds(data: bytes, device) -> tuple[list, Decoder, float]:
+    """The first GOF of ``data`` through ``Decoder(device=device)`` ->
+    (clouds, the decoder, wall seconds), the device synchronised."""
+    reader = V3CReader()
+    t0 = time.perf_counter()
+    decoder = Decoder(device=device)
+    clouds = decoder.decode(reader.decode(reader.read(data)[0]))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return clouds, decoder, time.perf_counter() - t0
+
+
+def clouds_equal(a: list, b: list) -> bool:
+    """Equal arrays, in order, frame by frame."""
+    return len(a) == len(b) and all(
+        np.array_equal(getattr(x, k), getattr(y, k))
+        for x, y in zip(a, b)
+        for k in ("positions", "colors", "types", "partition"))
+
+
+def decode_vs_cpu(name: str, data: bytes, dev, got=None, **fields) -> float:
+    """Hold the card's decode of ``data`` against the CPU's -> the CPU's
+    wall seconds.  Positions, types and partition equal exactly; colours
+    within MAX_COLOR_SHARE of the points, and only at smoothing-eligible
+    (boundary) points."""
+    if got is None:
+        got, _, _ = decode_clouds(data, dev)
+    want, _, cpu_s = decode_clouds(data, torch.device("cpu"))
+    check(len(got) == len(want), f"{name}: {len(got)} vs {len(want)} frames")
+    points = differing = 0
+    outside = False
+    for fi, (a, b) in enumerate(zip(got, want)):
+        for k in ("positions", "types", "partition"):
+            check(np.array_equal(getattr(a, k), getattr(b, k)),
+                  f"{name}: frame {fi} {k} differ between GPU and CPU")
+        diff = (a.colors != b.colors).any(axis=1)
+        points += len(diff)
+        differing += int(diff.sum())
+        outside |= bool((diff & (b.types != 1)).any())
+    share = differing / max(points, 1)
+    phase(name, points=points, geometry_equal=True,
+          color_differing_points=differing, color_share=share,
+          outside_eligible_points=outside, cpu_wall_s=f"{cpu_s:.3f}",
+          **fields)
+    check(points > 0, f"{name}: no points decoded")
+    check(share <= MAX_COLOR_SHARE and not outside,
+          f"{name}: GPU vs CPU colours: share {share}, outside the "
+          f"smoothing-eligible points: {outside}")
+    return cpu_s
+
+
+def decode_phase(data: bytes, data_mi: bytes, dev, card) -> list:
+    """14. The decode of the patch-carrying GOF on the card -> its clouds."""
+    runs = []
+    for i in range(4):      # one warm-up, then 3 timed runs
+        clouds, decoder, wall = decode_clouds(data, dev)
+        if i:
+            runs.append((wall, clouds, decoder))
+    walls = [r[0] for r in runs]
+    wall = statistics.median(walls)
+    clouds, decoder = runs[-1][1], runs[-1][2]
+    equal = clouds_equal(runs[-2][1], clouds)
+    counts = [ps.point_count for ps in clouds]
+    sums = [ps.compute_checksum().hex() for ps in clouds]
+    phase("decode", runs=len(walls), wall_s=repr(walls),
+          median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
+          points_per_frame=repr(counts), run_to_run_equal=equal,
+          stages_ms=json.dumps({k: round(v, 3)
+                                for k, v in decoder.timer.stages.items()}),
+          checksums=repr(sums), card=repr(card))
+    check(len(clouds) == FRAMES and min(counts) > 50_000,
+          f"decode: {len(clouds)} frames, points per frame {counts}")
+    check(all(ps.colors is not None and ps.colors.shape == ps.positions.shape
+              and ps.positions.min() >= 0 and ps.positions.max() < 1024
+              for ps in clouds), "decode: clouds malformed")
+    check(equal, "decode: two runs on the card give different clouds")
+    decode_clouds(data_mi, dev)       # warm-up
+    clouds_mi, _, wall_mi = decode_clouds(data_mi, dev)
+    phase("decode_mc_intra", wall_s=f"{wall_mi:.4f}",
+          frames_per_s=f"{FRAMES / wall_mi:.3f}",
+          points=sum(ps.point_count for ps in clouds_mi), card=repr(card))
+    # against the CPU: at the reduced size, and at full size if that is quick
+    kw = dict(patches=True, smoothing=True)
+    cpu_s = decode_vs_cpu("decode_vs_cpu",
+                          make_stream(*SMALL, **kw), dev, size=SMALL)
+    decode_vs_cpu("decode_mc_intra_vs_cpu",
+                  make_stream(*SMALL, motion=True, intra=True, **kw), dev,
+                  size=SMALL)
+    scale = FRAMES * WIDTH * HEIGHT / (SMALL[0] * SMALL[1] * SMALL[2])
+    if cpu_s * scale < CPU_FULL_LIMIT_S:
+        decode_vs_cpu("decode_vs_cpu_full", data, dev, got=clouds,
+                      size=(FRAMES, WIDTH, HEIGHT))
+    else:
+        phase("decode_vs_cpu_full", skipped=True,
+              predicted_cpu_s=f"{cpu_s * scale:.1f}",
+              limit_s=CPU_FULL_LIMIT_S)
+    return clouds
+
+
+def decode_map_pair_phase(dev, card) -> None:
+    """15. The dual-map stream: against the CPU at the reduced size, and
+    once at full size for its time."""
+    kw = dict(patches=True, smoothing=True, map_pair=True)
+    decode_vs_cpu("decode_map_pair_vs_cpu", make_stream(*SMALL, **kw), dev,
+                  size=SMALL)
+    t0 = time.perf_counter()
+    full = make_stream(FRAMES, WIDTH, HEIGHT, device=dev, **kw)
+    build_s = time.perf_counter() - t0
+    decode_clouds(full, dev)          # warm-up
+    clouds, decoder, wall = decode_clouds(full, dev)
+    counts = [ps.point_count for ps in clouds]
+    phase("decode_map_pair", wall_s=f"{wall:.4f}",
+          frames_per_s=f"{FRAMES / wall:.3f}", points=sum(counts),
+          stages_ms=json.dumps({k: round(v, 3)
+                                for k, v in decoder.timer.stages.items()}),
+          build_s=f"{build_s:.3f}", card=repr(card))
+    check(len(clouds) == FRAMES and min(counts) > 100_000,
+          f"decode_map_pair: points per frame {counts}")
+
+
+def _position_keys(ps) -> np.ndarray:
+    p = ps.positions.astype(np.int64)
+    return (p[:, 0] << 40) | (p[:, 1] << 20) | p[:, 2]
+
+
+def transcode_then_decode_phase(patch_data: bytes, plain_data: bytes,
+                                transcoded: bytes, source: list, dev,
+                                card) -> None:
+    """16. The transcoded videos of the main path under the patch stream's
+    atlas (the two streams carry the same videos), decoded: what the
+    transcode moved, until the port has its own D1/Y metrics."""
+    reader = V3CReader()
+    context = reader.decode(reader.read(patch_data)[0])
+    atlas = context.atlas(0)
+    plain = reader.decode(reader.read(plain_data)[0]).atlas(0)
+    out = reader.decode(reader.read(transcoded)[0]).atlas(0)
+    for vt, vb in plain.video_bitstreams.items():
+        check(atlas.get_video_bitstream(vt).data == vb.data,
+              f"{vt.name}: the patch stream's video is not the main path's")
+        atlas.set_video_bitstream(
+            VideoBitstream(vt, out.get_video_bitstream(vt).data))
+    clouds, _, wall = decode_clouds(write_context(context), dev)
+    points = moved = 0
+    for a, b in zip(clouds, source):
+        new = ~np.isin(_position_keys(a), _position_keys(b))
+        points += a.point_count
+        moved += int(new.sum())
+    phase("transcode_then_decode", wall_s=f"{wall:.4f}", points=points,
+          source_points=sum(ps.point_count for ps in source),
+          points_at_new_positions=moved,
+          share_at_new_positions=f"{moved / max(points, 1):.6f}",
+          card=repr(card))
+    check(len(clouds) == FRAMES and points > 0,
+          "transcode_then_decode: nothing decoded")
+
+
+def decode_app_phase(data: bytes, clouds: list, dev, card) -> None:
+    """17. The decode app on the stream file: PLYs written, checksums
+    equal to the library call's."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "decode"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "in.bin").write_bytes(data)
+    text = io.StringIO()
+    old = os.getcwd()
+    os.chdir(work)      # the app writes its timings file where it runs
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = decode_app.main(["--compressedStreamPath=in.bin",
+                                  "--reconstructedDataPath=rec_%04d.ply",
+                                  f"--device={dev.type}"])
+    finally:
+        os.chdir(old)
+    wall = time.perf_counter() - t0
+    sums = [ln.split(": ")[1] for ln in text.getvalue().splitlines()
+            if ln.startswith("checksum frame")]
+    want = [ps.compute_checksum().hex() for ps in clouds]
+    plys = sorted(work.glob("rec_*.ply"))
+    phase("decode_app", rc=rc, wall_s=f"{wall:.3f}", plys=len(plys),
+          ply_bytes=sum(p.stat().st_size for p in plys),
+          checksums_equal=sums == want,
+          checksums_md5=hashlib.md5("".join(sums).encode()).hexdigest(),
+          card=repr(card))
+    check(rc == 0 and len(plys) == FRAMES, f"decode app: rc {rc}, "
+                                           f"{len(plys)} PLYs")
+    check(sums == want, "decode app: checksums differ from the library's")
+    for p in plys:
+        p.unlink()
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     pkg = Path(rabbit_transcoding_tpu_torch.__file__).resolve().parent
@@ -507,7 +730,7 @@ def main() -> int:
             walls.append(wall)
     launches = tc.LAUNCHES
     launches_per_gof = launches // runs
-    main_out_bytes = len(out)
+    main_out, main_out_bytes = out, len(out)
     wall = statistics.median(walls)
     phase("main_path", runs=len(walls), wall_s=repr(walls),
           median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
@@ -582,6 +805,23 @@ def main() -> int:
 
     # 12. the stream app's batched mode
     stream_app_phase(streams, dev, card)
+
+    # 13. the decoder's streams, built on the card
+    patch_streams = []
+    for tools in ({}, {"motion": True, "intra": True}):
+        t0 = time.perf_counter()
+        patch_streams.append(make_stream(
+            FRAMES, WIDTH, HEIGHT, device=dev, patches=True, smoothing=True,
+            **tools))
+        phase("decode_stream", frames=FRAMES, size=f"{WIDTH}x{HEIGHT}",
+              tools=tools, bytes=len(patch_streams[-1]),
+              seconds=f"{time.perf_counter() - t0:.3f}")
+    # 14.-17. the decoder
+    clouds = decode_phase(*patch_streams, dev, card)
+    decode_map_pair_phase(dev, card)
+    transcode_then_decode_phase(patch_streams[0], data, main_out, clouds,
+                                dev, card)
+    decode_app_phase(patch_streams[0], clouds, dev, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
     k_ms, k_dev, p_ms, bound, by, dense = times["luma"]

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops.events import device_busy_us
 from ..testdata import make_stream, with_input_qps
 from ..transcoder import (
     ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
@@ -136,7 +137,7 @@ def main(argv: list[str] | None = None) -> int:
                                  ProfilerActivity.CUDA]) as prof:
             wall, _ = run()
         events = prof.key_averages()
-        busy_us = sum(e.self_device_time_total for e in events)
+        busy_us = device_busy_us(events)
         emit(f"profiled_wall_s {wall!r} device_busy_us {busy_us!r} "
              f"busy_share {busy_us * 1e-6 / wall!r}")
         emit(events.table(sort_by="self_device_time_total", row_limit=15,

@@ -21,8 +21,9 @@ checkpoint and batch unit:
         --sharded=1 --device=cuda
 
 ``--device=cuda`` (the default) raises when there is no GPU.  ``--trace``
-needs the decoder and raises until it is ported; the reference's link-rate
-probe is not carried over.
+(single stream) decodes each transcoded GOF and writes the encoder-side
+conformance logs (``enc_*``), to be diffed against ``rabbit-decode --trace``
+on the written stream; the reference's link-rate probe is not carried over.
 """
 
 from __future__ import annotations
@@ -39,11 +40,15 @@ import torch
 
 from ..bitstream import V3CReader, V3CWriter
 from ..bitstream.v3c import sample_stream_header, write_sample_stream_units
+from ..codec.patch_frame import decode_patch_frames
+from ..codec.trace import emit_conformance_traces
+from ..decoder.decoder import Decoder
 from ..device import resolve
 from ..transcoder.multistream import MultiStreamTranscoder
 from ..transcoder.params import TranscoderParameters
 from ..transcoder.transcoder import Transcoder
 from ..utils.timing import Stopwatch, print_run_footer
+from ..utils.tracing import TraceCategory, Tracer
 from .common import build_registry, parse_or_help
 
 
@@ -57,7 +62,7 @@ class StreamParams(TranscoderParameters):
     # batch all input streams' GOFs, one device call per plane and round
     # (requires more than one input; output byte-identical to unbatched)
     sharded: bool = False
-    # conformance trace logs per GOF: needs the decoder, not ported yet
+    # write enc_* conformance trace logs per GOF (single-stream mode)
     trace: bool = False
 
 
@@ -93,6 +98,9 @@ class _StreamIO:
         self.t0 = time.perf_counter()
 
         self.done = 0
+        # GOFs written this run: the key of a GOF's trace logs is its
+        # position in the output, which a skipped input GOF does not shift
+        self.written = 0
         self._mode = "wb"
         spath = _state_path(path_out)
         if params.resume and os.path.exists(spath):
@@ -152,6 +160,7 @@ class _StreamIO:
         self._f.write(blob)
         self._f.flush()
         self.done += 1
+        self.written += 1
         self._write_state()
 
     def skip_gof(self, gi: int, err: Exception) -> None:
@@ -179,18 +188,19 @@ def _encode_gof(context) -> bytes:
 
 
 def transcode_stream(path_in: str, path_out: str, params: StreamParams,
-                     device: torch.device | str) -> dict:
+                     device: torch.device | str, tracer=None) -> dict:
     """Transcode one stream GOF by GOF on ``device``, with checkpointed
-    progress."""
+    progress.  With a ``tracer`` each transcoded GOF is decoded and its
+    conformance logs are written."""
     transcoder = Transcoder(params, device)
 
     with _StreamIO(path_in, path_out, params) as sio:
 
-        def process(gi: int) -> bytes:
+        def process(gi: int):
             context = sio.reader.decode(sio.gofs[gi])
             for atlas in list(context.atlases):
                 transcoder.transcode(context, atlas.atlas_id)
-            return _encode_gof(context)
+            return _encode_gof(context), context
 
         depth = max(1, params.pipelineDepth)
         with cf.ThreadPoolExecutor(max_workers=depth) as ex:
@@ -199,10 +209,26 @@ def transcode_stream(path_in: str, path_out: str, params: StreamParams,
             for gi in sorted(futures):
                 try:
                     # pop: a future holds its result until released
-                    blob = futures.pop(gi).result()
+                    blob, context = futures.pop(gi).result()
                 except Exception as e:  # per-GOF failure containment
                     sio.skip_gof(gi, e)
                     continue
+                if tracer is not None:
+                    # the logs come from the transcoded context in memory,
+                    # BEFORE serialisation, so diffing them against
+                    # rabbit-decode --trace on the written stream catches
+                    # writer/reader drift.  Written here, in GOF order, not
+                    # in the pipeline workers; keyed by the GOF's position
+                    # in the output; before the write, so a crash between
+                    # the two re-emits a GOF's logs rather than losing them.
+                    for atlas in context.atlases:
+                        emit_conformance_traces(
+                            tracer, atlas, decode_patch_frames(atlas),
+                            Decoder(device=device).decode(
+                                context, atlas.atlas_id),
+                            gof=sio.written, atlas_id=atlas.atlas_id,
+                        )
+                del context  # free the GOF's decoded planes at once
                 sio.write_gof(blob)
         return sio.result()
 
@@ -278,10 +304,6 @@ def main(argv=None) -> int:
     })
     if parse_or_help(reg, argv, params, "rabbit-stream") is None:
         return 0
-    if params.trace:
-        raise NotImplementedError(
-            "--trace is not ported yet: it needs the decoder (ROADMAP, "
-            "queue 1 item 6)")
     if not params.compressedStreamPath:
         print("error: --compressedStreamPath is required", file=sys.stderr)
         return 1
@@ -301,10 +323,27 @@ def main(argv=None) -> int:
         print("error: input/output stream count mismatch", file=sys.stderr)
         return 1
 
+    tracer = None
+    if params.trace:
+        if len(inputs) != 1:
+            print("warning: --trace supports a single input stream; ignored",
+                  file=sys.stderr)
+        else:
+            # a resumed run APPENDS to the earlier run's enc_* logs, so the
+            # conformance pair still covers every written GOF; duplicate
+            # keys are harmless (same values, the last wins)
+            resuming = params.resume and os.path.exists(
+                _state_path(outputs[0]))
+            tracer = Tracer(prefix="enc_", append=resuming).enable(
+                *TraceCategory)
+
     sw = Stopwatch()
     sw.start()
     if len(inputs) == 1:
-        results = [transcode_stream(inputs[0], outputs[0], params, device)]
+        results = [transcode_stream(inputs[0], outputs[0], params, device,
+                                    tracer=tracer)]
+        if tracer is not None:
+            tracer.close()
     elif params.sharded:
         results = transcode_streams_sharded(inputs, outputs, params, device)
     else:

@@ -1,5 +1,6 @@
 """CUDA-event timing of a call on the card (``chip_smoke.py`` and
-``apps/kernel_ab.py``)."""
+``apps/kernel_ab.py``), and the device's busy time in a ``torch.profiler``
+trace (the profiling apps)."""
 
 from __future__ import annotations
 
@@ -37,3 +38,14 @@ def median_ms(fn, n: int = 20, warmup: int = 3,
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_busy_us(events) -> float:
+    """Microseconds the card was busy in a profile's ``key_averages()``: the
+    kernels' and copies' own rows only.  A CPU-side operator's row repeats
+    the device time of the kernels it launched, so a sum over all rows
+    counts every kernel twice."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA)

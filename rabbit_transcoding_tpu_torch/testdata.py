@@ -26,8 +26,24 @@ Variants for the transcoder's other inputs:
 * ``map_pair=True``: two maps in per-map sub-streams (GEOMETRY_D0/D1,
   ATTRIBUTE_T0/T1) with map 1 coded as a biased delta against the
   reconstructed map 0 (``vps_map_absolute_coding_enabled_flag[1]`` clear);
+* ``patches=True``: one atlas tile layer per frame, so that a decoder
+  reconstructs points (below); ``smoothing=True`` adds the geometry- and
+  attribute-smoothing SEIs;
 * ``with_input_qps``: the same stream with its lossy videos requantised to
   other QPs, a cheap way to get distinct streams of one shape.
+
+Patch data (``patches=True``).  This is test data, not an encoder: a fixed
+layout that the port's own syntax classes write the way the V-PCC encoder
+fills them (one intra ``PatchDataUnit`` per patch in an I tile).  The atlas
+is a grid of 64 x 64-pixel patches (4 x 4 blocks at occupancy resolution
+16; 256 patches per frame at 1024 x 1024).  Patch k takes orientation
+k mod 8, and normal axis and projection mode k mod 6 (the six axial
+projection planes); its 3D offsets follow the grid position, with the depth
+offset chosen per projection mode so that, with geometry of about 180-420,
+every coordinate stays within 10 bits.  Every fifth patch that is not on
+the last row or column is one block longer (80 pixels along its u axis), so
+its block bounding box overlaps its right or lower neighbour's and block
+ownership is contested; the ASPS declares that the first-coded patch wins.
 """
 
 from __future__ import annotations
@@ -37,14 +53,27 @@ import torch
 
 from .bitstream import V3CReader, V3CWriter, VideoBitstream
 from .bitstream.hls import Context
+from .bitstream.sei import SeiAttributeSmoothing, SeiGeometrySmoothing
 from .bitstream.syntax import (
     AtlasFrameParameterSetRbsp,
     AtlasSequenceParameterSetRbsp,
+    AtlasTileDataUnit,
+    AtlasTileHeader,
+    AtlasTileLayerRbsp,
+    PatchDataUnit,
+    PatchInformationData,
+    RefListStruct,
     V3CParameterSet,
 )
 from .codec.mapstream import attr_bias, geo_bias, make_delta
 from .core.image import Video
-from .utils.enums import CodecId, ColorFormat, VideoType
+from .utils.enums import (
+    AtlasTileType,
+    CodecId,
+    ColorFormat,
+    PatchModeITile,
+    VideoType,
+)
 from .video import VideoEncoder, VideoEncoderParams, rbv
 
 
@@ -84,12 +113,47 @@ def lossy_params(motion: bool, intra: bool, occ: np.ndarray) -> dict:
             "attribute": dict(qp=22, gop_size=2, **tools)}
 
 
+PATCH_BLOCKS = 4       # a patch is 4 x 4 blocks of 16 pixels
+_BLOCK = 16
+
+
+def patch_units(width: int, height: int) -> list[PatchDataUnit]:
+    """The intra patch data units of one frame of the patch-carrying test
+    stream (the module's note gives the layout)."""
+    nx, ny = width // (PATCH_BLOCKS * _BLOCK), height // (PATCH_BLOCKS * _BLOCK)
+    units = []
+    for gy in range(ny):
+        for gx in range(nx):
+            k = gy * nx + gx
+            # one block longer along u: the canvas box grows to the right,
+            # or downwards under an orientation that swaps the axes
+            longer = k % 5 == 1 and gx < nx - 1 and gy < ny - 1
+            mode1 = (k % 6) >= 3
+            depth0 = (k * 8) % 512
+            units.append(PatchDataUnit(
+                pdu_2d_pos_x=gx * PATCH_BLOCKS,
+                pdu_2d_pos_y=gy * PATCH_BLOCKS,
+                pdu_2d_size_x_minus1=PATCH_BLOCKS - 1 + longer,
+                pdu_2d_size_y_minus1=PATCH_BLOCKS - 1,
+                pdu_3d_offset_u=(gx * 64) % 896,
+                pdu_3d_offset_v=(gy * 64) % 896,
+                pdu_3d_offset_d=1023 - depth0 if mode1 else depth0,
+                pdu_projection_id=k % 6,
+                pdu_orientation_index=k % 8,
+            ))
+    return units
+
+
 def make_stream(frames: int, width: int = 1024, height: int = 1024,
                 device=torch.device("cpu"), motion: bool = False,
                 intra: bool = False, lossless: bool = False,
-                map_pair: bool = False) -> bytes:
+                map_pair: bool = False, patches: bool = False,
+                smoothing: bool = False) -> bytes:
     """One GOF of ``frames`` frames at ``width`` x ``height`` -> V3C bytes.
-    Deterministic (seed 0)."""
+    Deterministic (seed 0).  ``patches``: with one atlas tile layer per
+    frame (width and height multiples of 64); ``smoothing``: with a
+    geometry-smoothing SEI (grid method, grid 8, threshold 64) and an
+    attribute-smoothing SEI."""
     occ, geo, attr_y = content(frames, width, height)
     p = OCC_PRECISION
     occ_small = occ.reshape(frames, height // p, p, width // p, p).max(
@@ -149,9 +213,36 @@ def make_stream(frames: int, width: int = 1024, height: int = 1024,
     atlas.asps_list.append(
         AtlasSequenceParameterSetRbsp(
             asps_frame_width=width, asps_frame_height=height,
-            asps_map_count_minus1=1 if map_pair else 0)
+            asps_map_count_minus1=1 if map_pair else 0,
+            # first-coded patch wins a contested block
+            asps_patch_precedence_order_flag=patches,
+            # the tile headers name the ASPS's reference list (one
+            # short-term entry, the previous frame), as the encoder's do
+            ref_list_structs=[RefListStruct(
+                num_ref_entries=1, abs_delta_afoc_st=[1],
+                straf_entry_sign_flag=[True])] if patches else [])
     )
     atlas.afps_list.append(AtlasFrameParameterSetRbsp())
+    if patches:
+        for fi in range(frames):
+            atl = AtlasTileLayerRbsp(
+                header=AtlasTileHeader(
+                    ath_type=AtlasTileType.I_TILE,
+                    ath_atlas_frm_order_cnt_lsb=fi % 256),
+                data_unit=AtlasTileDataUnit(patches=[
+                    PatchInformationData(
+                        patch_mode=int(PatchModeITile.I_INTRA), data=du)
+                    for du in patch_units(width, height)]))
+            atl.afoc = fi
+            atlas.atlas_tile_layers.append(atl)
+    if smoothing:
+        atlas.seis_prefix.append(SeiGeometrySmoothing(
+            gs_smoothing_method_type=1, gs_smoothing_grid_size_minus2=6,
+            gs_smoothing_threshold=64))
+        atlas.seis_prefix.append(SeiAttributeSmoothing(
+            as_smoothing_grid_size_minus2=6, as_smoothing_threshold=10,
+            as_smoothing_threshold_variation=255,
+            as_smoothing_threshold_difference=255))
     atlas.set_video_bitstream(VideoBitstream(VideoType.OCCUPANCY, occ_payload))
     for vt, payload in videos.items():
         atlas.set_video_bitstream(VideoBitstream(vt, payload))

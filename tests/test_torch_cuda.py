@@ -346,3 +346,183 @@ def test_entry_points_default_to_the_card(cuda):
                 VideoEncoder.create(CodecId.RBV),
                 VideoDecoder.create(CodecId.RBV)):
         assert obj.device.type == "cuda"
+
+
+# --- the decoder's device functions: the card against the CPU ----------------
+# (small, and the decode cell's full size: 1024x1024, 256 patches)
+_SIZES = [(2, 128, 128), (4, 1024, 1024)]
+
+
+def _decoder_planes(f, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    blocks = rng.random((f, h // 16, w // 16)) < 0.5
+    occ = np.repeat(np.repeat(blocks, 16, 1), 16, 2)
+    occ = (occ & (rng.random((f, h, w)) < 0.95)).astype(np.uint8)
+    geo = rng.integers(0, 1024, (f, h, w)).astype(np.int32)
+    return torch.from_numpy(occ), torch.from_numpy(geo)
+
+
+def _decoder_table(f, h, w):
+    from rabbit_transcoding_tpu_torch.codec.patch_frame import _intra_patch
+    from rabbit_transcoding_tpu_torch.ops.reproject import build_patch_table
+    from rabbit_transcoding_tpu_torch.testdata import patch_units
+
+    patches = [_intra_patch(du, i, 16, 16, 16, 0)
+               for i, du in enumerate(patch_units(w, h))]
+    table, counts = build_patch_table([patches] * f,
+                                      -(-len(patches) // 32) * 32)
+    return torch.from_numpy(table), torch.from_numpy(counts)
+
+
+def _same(got, want):
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("size", _SIZES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_reproject_on_the_card_equals_the_cpu(cuda, size, reverse):
+    from rabbit_transcoding_tpu_torch.ops import reproject as rp
+
+    occ, geo = _decoder_planes(*size)
+    table, counts = _decoder_table(*size)
+    want = rp.reproject(geo, occ, table, counts, 16, reverse)
+    got = rp.reproject(geo.to(cuda), occ.to(cuda), table.to(cuda),
+                       counts.to(cuda), 16, reverse)
+    _same(got, want)
+    assert want[1].any()
+
+
+@pytest.mark.parametrize("size", _SIZES)
+def test_occupancy_and_interleave_on_the_card_equal_the_cpu(cuda, size):
+    from rabbit_transcoding_tpu_torch.codec.reconstruct import (
+        occupancy_boundary,
+    )
+    from rabbit_transcoding_tpu_torch.ops import interleave, occupancy
+    from rabbit_transcoding_tpu_torch.ops import reproject as rp
+
+    occ, geo = _decoder_planes(*size, seed=1)
+    table, counts = _decoder_table(*size)
+    _same(occupancy.binarize((occ * 200).to(cuda), 127),
+          occupancy.binarize(occ * 200, 127))
+    _same(occupancy.prefilter_lossy_om((occ * 255).to(cuda)),
+          occupancy.prefilter_lossy_om(occ * 255))
+    owner = occupancy.upsample_nearest(
+        rp.block_to_patch(occ, table, counts, 16), 16)
+    smooth = (geo // 64 + 200).to(torch.int32)
+    for radius in (1, 2):
+        _same(occupancy.pbf_refine(occ.to(cuda), smooth.to(cuda),
+                                   owner.to(cuda), 4.0, 2, radius),
+              occupancy.pbf_refine(occ, smooth, owner, 4.0, 2, radius))
+    _same(interleave.deinterleave_maps(geo.to(cuda), occ.to(cuda), 4),
+          interleave.deinterleave_maps(geo, occ, 4))
+    _same(occupancy_boundary(occ.to(cuda)), occupancy_boundary(occ))
+
+
+@pytest.mark.parametrize("size", _SIZES)
+@pytest.mark.parametrize("up_filter", [0, 4, "nearest"])
+def test_colour_conversion_on_the_card_equals_the_cpu(cuda, size, up_filter):
+    from rabbit_transcoding_tpu_torch.ops import color
+
+    f, h, w = size
+    rng = np.random.default_rng(2)
+    y = torch.from_numpy(rng.integers(0, 256, (f, h, w)).astype(np.uint8))
+    u, v = (torch.from_numpy(
+        rng.integers(0, 256, (f, h // 2, w // 2)).astype(np.uint8))
+        for _ in range(2))
+    _same(color.yuv420_to_rgb8(y.to(cuda), u.to(cuda), v.to(cuda),
+                               up_filter),
+          color.yuv420_to_rgb8(y, u, v, up_filter))
+    yuv = torch.from_numpy(
+        rng.integers(0, 65536, (h * w, 3)).astype(np.int32))
+    _same(color.yuv16_to_rgb8(yuv.to(cuda)), color.yuv16_to_rgb8(yuv))
+
+
+def _smoothing_cloud(n, radius, seed=0):
+    """A noisy sphere surface of about 0.3 points per surface voxel."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p = np.unique(np.round(500 + radius * d
+                           + rng.normal(scale=1.5, size=(n, 3))
+                           ).astype(np.int32), axis=0)
+    rng.shuffle(p)
+    n = len(p)
+    # stripes that do not end on the grids' cell borders: mixed cells
+    part = ((p[:, 0] // 44) + (p[:, 1] // 52) * 32).astype(np.int32)
+    base = 128 + 60 * np.sin(p[:, 0] / 17.0) + 30 * np.cos(p[:, 1] / 11.0)
+    col = np.clip(base[:, None] + rng.normal(scale=6, size=(n, 3)), 0,
+                  255).astype(np.uint8)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (p, col, part, rng.random(n) < 0.5)]
+
+
+# a small cloud, and one of a decode-cell frame's size
+@pytest.mark.parametrize("n,radius", [(20_000, 75), (400_000, 330)])
+def test_smoothing_grids_on_the_card_equal_the_cpu(cuda, n, radius):
+    from rabbit_transcoding_tpu_torch.ops import smoothing as sm
+
+    p, col, part, elig = _smoothing_cloud(n, radius)
+    valid = torch.ones(len(p), dtype=torch.bool)
+    on = [t.to(cuda) for t in (p, col, part, elig, valid)]
+    _same(sm.grid_smooth(on[0], on[4], 16.0, 4.0, on[3], 8, 128),
+          sm.grid_smooth(p, valid, 16.0, 4.0, elig, 8, 128))
+    _same(sm.color_grid_smooth(on[0], on[1], on[4], 4.0, 8, 128),
+          sm.color_grid_smooth(p, col, valid, 4.0, 8, 128))
+    args = (10.0, 40.0, 30.0, 8, 128)
+    first = sm.color_grid_smooth_gated(on[0], on[1], on[4], on[2], on[3],
+                                       *args)
+    again = sm.color_grid_smooth_gated(on[0], on[1], on[4], on[2], on[3],
+                                       *args)
+    # run to run the same: the scatter adds each cell's points in one order
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+    want = sm.color_grid_smooth_gated(p, col, valid, part, elig, *args)
+    assert want[1].any()
+    # two clouds in one call, each in its own grid, as the wrappers batch
+    group = torch.arange(len(p)) % 2
+    got = sm.color_grid_smooth_gated(on[0], on[1], on[4], on[2], on[3],
+                                     *args, group.to(cuda), 2)
+    want2 = sm.color_grid_smooth_gated(p, col, valid, part, elig, *args,
+                                       group, 2)
+    assert (got[0].cpu() != want2[0]).any(dim=1).float().mean() <= 1e-4
+    # against the CPU's serial sums: equal, or a luma sum's last bit flips
+    # a gate at a few eligible points
+    differ = (first[0].cpu() != want[0]).any(dim=1)
+    assert differ.float().mean().item() <= 1e-4
+    assert not (differ & ~elig).any()
+
+
+def test_scatter_sum_on_the_card_adds_in_point_order(cuda):
+    from rabbit_transcoding_tpu_torch.ops import smoothing as sm
+
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.integers(0, 500, 300_000))
+    vals = torch.from_numpy((rng.random((300_000, 6)) * 1000).astype(
+        np.float32))
+    want = sm._scatter_sum(flat, vals, 500)
+    got = sm._scatter_sum(flat.to(cuda), vals.to(cuda), 500)
+    again = sm._scatter_sum(flat.to(cuda), vals.to(cuda), 500)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(smoothing=True), dict(map_pair=True, smoothing=True),
+    dict(motion=True, intra=True), dict(lossless=True)])
+def test_decoder_on_the_card_equals_the_cpu(cuda, kw):
+    from rabbit_transcoding_tpu_torch.bitstream import V3CReader
+    from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
+    from rabbit_transcoding_tpu_torch.testdata import make_stream
+
+    data = make_stream(4, 256, 256, patches=True, **kw)
+    reader = V3CReader()
+    assert Decoder().device.type == "cuda"
+    got, want = (Decoder(device=d).decode(reader.decode(reader.read(data)[0]))
+                 for d in (cuda, "cpu"))
+    for a, b in zip(got, want):
+        for k in ("positions", "colors", "types", "partition"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))

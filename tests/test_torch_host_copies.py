@@ -1,6 +1,8 @@
 """The port's own copies of the reference's host layers against the
 originals on the CPU: the V3C reader and writer, the hash SEI and the rANS
-library give the reference's bytes.  The entry points of the port run on the
+library give the reference's bytes; the point-cloud containers, the raw and
+EOM point helpers and the conformance tracer give the reference's arrays,
+checksums and files.  The entry points of the port run on the
 card unless the caller asks for the CPU, and raise when there is none."""
 
 import numpy as np
@@ -29,6 +31,28 @@ from rabbit_transcoding_tpu_torch.transcoder import (
 )
 from rabbit_transcoding_tpu_torch.utils.enums import CodecId
 from rabbit_transcoding_tpu_torch.video import VideoDecoder, VideoEncoder, rbv
+
+from rabbit_transcoding_tpu.codec import eom as ref_eom
+from rabbit_transcoding_tpu.codec import raw_points as ref_raw
+from rabbit_transcoding_tpu.codec.trace import (
+    emit_conformance_traces as ref_emit_traces,
+)
+from rabbit_transcoding_tpu.core.patch import Patch as RefPatch
+from rabbit_transcoding_tpu.core.pointset import PointSet as RefPointSet
+from rabbit_transcoding_tpu.utils import tracing as ref_tracing
+from rabbit_transcoding_tpu_torch.codec import eom, raw_points
+from rabbit_transcoding_tpu_torch.codec.trace import emit_conformance_traces
+from rabbit_transcoding_tpu_torch.core import GroupOfFrames as PortGof
+from rabbit_transcoding_tpu_torch.core import Patch, PointSet
+from rabbit_transcoding_tpu_torch.codec.reconstruct import (
+    ReconstructionEngine,
+)
+from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
+from rabbit_transcoding_tpu_torch.ops.smoothing import (
+    smooth_cloud,
+    smooth_colors,
+)
+from rabbit_transcoding_tpu_torch.utils import tracing
 
 from test_e2e_codec import make_sphere_cloud
 from test_torch_transcoder import _bench_make_stream
@@ -132,6 +156,131 @@ def test_native_builds_outside_the_reference_package():
     assert native._LIB != ref_native._LIB
 
 
+# --- the decoder's host copies -----------------------------------------------
+def _cloud_arrays(seed: int, n: int = 5000) -> dict:
+    rng = np.random.default_rng(seed)
+    return dict(
+        positions=rng.integers(0, 40, (n, 3)).astype(np.int32),
+        colors=rng.integers(0, 256, (n, 3)).astype(np.uint8),
+        reflectances=rng.integers(0, 60000, n).astype(np.uint16),
+        types=rng.integers(0, 2, n).astype(np.uint8),
+        partition=rng.integers(-1, 9, n).astype(np.int32),
+    )
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+def test_pointset_duplicates_and_checksum_equal(mode):
+    arrays = _cloud_arrays(mode)
+    got = PointSet(**arrays).remove_duplicates(mode)
+    want = RefPointSet(**arrays).remove_duplicates(mode)
+    assert 0 < got.point_count < len(arrays["positions"])
+    for name in arrays:
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert got.compute_checksum() == want.compute_checksum()
+    assert (PointSet(**arrays).compute_checksum()
+            == RefPointSet(**arrays).compute_checksum())
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_ply_files_equal(tmp_path, binary):
+    arrays = _cloud_arrays(3, 300)
+    PointSet(**arrays).write_ply(str(tmp_path / "a.ply"), binary=binary)
+    RefPointSet(**arrays).write_ply(str(tmp_path / "b.ply"), binary=binary)
+    assert (tmp_path / "a.ply").read_bytes() == (tmp_path / "b.ply").read_bytes()
+    back = PointSet.read_ply(str(tmp_path / "b.ply"))
+    np.testing.assert_array_equal(back.positions, arrays["positions"])
+    np.testing.assert_array_equal(back.colors, arrays["colors"])
+
+
+def test_group_of_frames_files_equal(tmp_path):
+    clouds = [_cloud_arrays(s, 200) for s in range(3)]
+    PortGof([PointSet(**c) for c in clouds]).write(
+        str(tmp_path / "p_%04d.ply"), 5)
+    GroupOfFrames([RefPointSet(**c) for c in clouds]).write(
+        str(tmp_path / "r_%04d.ply"), 5)
+    for i in range(5, 8):
+        assert ((tmp_path / f"p_{i:04d}.ply").read_bytes()
+                == (tmp_path / f"r_{i:04d}.ply").read_bytes())
+    loaded = PortGof.load(str(tmp_path / "r_%04d.ply"), 5, 3)
+    assert [ps.compute_checksum() for ps in loaded] == [
+        RefPointSet(**c).compute_checksum() for c in clouds]
+
+
+def test_raw_point_helpers_equal():
+    rng = np.random.default_rng(4)
+    pts = [rng.integers(0, 1024, (n, 3)).astype(np.int32) for n in (700, 0)]
+    cols = [rng.integers(0, 256, (len(p), 3)).astype(np.uint8) for p in pts]
+    extra = [rng.integers(0, 256, (40, 3)).astype(np.uint8), None]
+    got = raw_points.build_raw_videos(pts, cols, 10, extra)
+    want = ref_raw.build_raw_videos(pts, cols, 10, extra)
+    for g, w in zip(got, want):
+        assert (g.width, g.height, g.bitdepth) == (w.width, w.height,
+                                                   w.bitdepth)
+        for a, b in zip(g.planes, w.planes):
+            np.testing.assert_array_equal(a, b)
+    unit = raw_points.make_raw_patch_unit(700)
+    ref_unit = ref_raw.make_raw_patch_unit(700)
+    assert vars(unit) == vars(ref_unit)
+    attr = np.stack([pl[0] for pl in got[1].planes], axis=-1)
+    rec = raw_points.recover_raw_points([unit], got[0].planes[0][0], attr,
+                                        coord_max=1000)
+    ref_rec = ref_raw.recover_raw_points([ref_unit], want[0].planes[0][0],
+                                         attr, coord_max=1000)
+    for a, b in zip(rec, ref_rec):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(rec[0], np.clip(pts[0], 0, 1000))
+    np.testing.assert_array_equal(raw_points.morton_order(pts[0]),
+                                  ref_raw.morton_order(pts[0]))
+    np.testing.assert_array_equal(
+        raw_points.prune_isolated_raw_points(pts[0] // 64),
+        ref_raw.prune_isolated_raw_points(pts[0] // 64))
+
+
+def test_eom_helpers_equal():
+    rng = np.random.default_rng(6)
+    kw = dict(index=0, u0=0, v0=0, size_u0=2, size_v0=2, size_u=32,
+              size_v=32, u1=10, v1=20, d1=30, normal_axis=2, tangent_axis=0,
+              bitangent_axis=1)
+    eom_plane = (rng.integers(0, 8, (32, 32))
+                 * (rng.random((32, 32)) < 0.2)).astype(np.uint8)
+    geo = rng.integers(0, 50, (32, 32)).astype(np.int32)
+    owner = np.ones((32, 32), np.int32)
+    got = eom.enumerate_frame_eom_points([Patch(**kw)], eom_plane, geo, owner)
+    want = ref_eom.enumerate_frame_eom_points([RefPatch(**kw)], eom_plane,
+                                              geo, owner)
+    assert len(got) > 0
+    np.testing.assert_array_equal(got, want)
+    assert vars(eom.make_eom_patch_unit(17)) == vars(
+        ref_eom.make_eom_patch_unit(17))
+
+
+def test_conformance_trace_files_equal(tmp_path):
+    data = make_stream(2, 128, 128, patches=True)
+    reader = bitstream.V3CReader()
+    context = reader.decode(reader.read(data)[0])
+    atlas = context.atlas(0)
+    clouds = Decoder(device="cpu").decode(context)
+    ref_reader = ref_bitstream.V3CReader()
+    ref_atlas = ref_reader.decode(ref_reader.read(data)[0]).atlas(0)
+    ref_clouds = [RefPointSet(positions=ps.positions, colors=ps.colors)
+                  for ps in clouds]
+    tr = tracing.Tracer(prefix=str(tmp_path / "p_")).enable(
+        *tracing.TraceCategory)
+    emit_conformance_traces(tr, atlas, decode_patch_frames(atlas), clouds,
+                            gof=2, atlas_id=0)
+    tr.close()
+    ref_tr = ref_tracing.Tracer(prefix=str(tmp_path / "r_")).enable(
+        *ref_tracing.TraceCategory)
+    ref_emit_traces(ref_tr, ref_atlas, ref_patch_frames(ref_atlas),
+                    ref_clouds, gof=2, atlas_id=0)
+    ref_tr.close()
+    names = sorted(p.name[2:] for p in tmp_path.glob("r_*.txt"))
+    assert "pcframe.txt" in names and "hls.txt" in names
+    for name in names:
+        assert ((tmp_path / f"p_{name}").read_bytes()
+                == (tmp_path / f"r_{name}").read_bytes()), name
+
+
 # --- the entry points' device ------------------------------------------------
 def _default_devices() -> dict:
     """The device each entry point picks when given none."""
@@ -148,6 +297,8 @@ def _default_devices() -> dict:
         "transcode_payloads": seen[0],
         "VideoEncoder": VideoEncoder.create(CodecId.RBV).device,
         "VideoDecoder": VideoDecoder.create(CodecId.RBV).device,
+        "Decoder": Decoder().device,
+        "ReconstructionEngine": ReconstructionEngine().device,
     }
 
 
@@ -166,7 +317,11 @@ def test_entry_points_pick_cuda_or_raise(monkeypatch, card):
     if card:
         assert set(_default_devices().values()) == {torch.device("cuda")}
         return
-    for make in (Transcoder, MultiStreamTranscoder,
+    for make in (Transcoder, MultiStreamTranscoder, Decoder,
+                 ReconstructionEngine,
+                 lambda: smooth_cloud(np.zeros((1, 3), np.int32)),
+                 lambda: smooth_colors(np.zeros((1, 3), np.int32),
+                                       np.zeros((1, 3), np.uint8)),
                  lambda: ms.transcode_payloads([], 30),
                  lambda: VideoEncoder.create(CodecId.RBV),
                  lambda: VideoDecoder.create(CodecId.RBV),

@@ -25,7 +25,9 @@ def _run(imports: str) -> None:
         [sys.executable, "-c", _CHECK.format(imports=imports)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+    # the last line: an app run by the check prints its own lines first
+    assert proc.returncode == 0 and proc.stdout.split()[-1:] == ["ok"], (
+        proc.stderr)
 
 
 def test_main_path_modules_import_without_jax():
@@ -43,6 +45,16 @@ def test_multistream_modules_import_without_jax():
         "import rabbit_transcoding_tpu_torch.transcoder.multistream\n"
         "import rabbit_transcoding_tpu_torch.apps.stream\n"
         "import rabbit_transcoding_tpu_torch.ops.dilate\n"
+    )
+
+
+def test_decoder_modules_import_without_jax():
+    _run(
+        "import rabbit_transcoding_tpu_torch.decoder.decoder\n"
+        "import rabbit_transcoding_tpu_torch.codec.reconstruct\n"
+        "import rabbit_transcoding_tpu_torch.codec.postprocess\n"
+        "import rabbit_transcoding_tpu_torch.apps.decode\n"
+        "import rabbit_transcoding_tpu_torch.ops.smoothing\n"
     )
 
 
@@ -74,6 +86,31 @@ def test_cpu_transcode_leaves_the_reference_and_jax_unimported():
     )
 
 
+def test_cpu_decode_leaves_the_reference_and_jax_unimported(tmp_path):
+    # a patch-carrying stream through the decoder and the decode app
+    _run(
+        "import os\n"
+        "from rabbit_transcoding_tpu_torch.apps import decode\n"
+        "from rabbit_transcoding_tpu_torch.bitstream import V3CReader\n"
+        "from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder\n"
+        "from rabbit_transcoding_tpu_torch.testdata import make_stream\n"
+        "data = make_stream(2, 128, 128, patches=True, smoothing=True)\n"
+        "reader = V3CReader()\n"
+        "clouds = Decoder(device='cpu').decode(\n"
+        "    reader.decode(reader.read(data)[0]))\n"
+        "assert sum(ps.point_count for ps in clouds) > 1000\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "open('in.bin', 'wb').write(data)\n"
+        "assert decode.main(['--compressedStreamPath=in.bin',\n"
+        "                    '--reconstructedDataPath=r_%04d.ply',\n"
+        "                    '--trace=1', '--device=cpu']) == 0\n"
+        "assert os.path.exists('r_0001.ply')\n"
+        "ref = [m for m in sys.modules if m == 'rabbit_transcoding_tpu'\n"
+        "       or m.startswith('rabbit_transcoding_tpu.')]\n"
+        "assert not ref, ref\n"
+    )
+
+
 def _imported_modules(path: Path) -> set[str]:
     tree = ast.parse(path.read_text(), str(path))
     names = set()
@@ -88,7 +125,8 @@ def _imported_modules(path: Path) -> set[str]:
 def test_no_source_of_the_port_imports_the_reference_or_jax():
     files = sorted((ROOT / "rabbit_transcoding_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 30
+    assert len(files) > 45
+    assert ROOT / "rabbit_transcoding_tpu_torch/apps/decode.py" in files
     bad = {
         str(f.relative_to(ROOT)): sorted(
             m for m in _imported_modules(f)

@@ -211,9 +211,12 @@ def test_main_sharded_cli(inputs, tmp_path, monkeypatch, capsys):
 def test_main_trace_raises_and_cuda_needs_a_gpu(inputs, tmp_path,
                                                 monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        app.main([f"--compressedStreamPath={inputs['a']}", "--trace",
-                  "--device=cpu"])
+    # --trace no longer raises: it decodes each transcoded GOF and writes
+    # the enc_* logs (held against the reference app's in
+    # test_torch_decode_app.py)
+    assert app.main([f"--compressedStreamPath={inputs['a']}", "--trace",
+                     "--outStreamPath=t.bin", "--device=cpu"]) == 0
+    assert "gof_1_atlas_0_hls_md5" in (tmp_path / "enc_hls.txt").read_text()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main([f"--compressedStreamPath={inputs['a']}",
