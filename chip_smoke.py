@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode
-and the V-PCC decode.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode,
+the V-PCC decode, and the normals and quality metrics on streams that the
+V-PCC encoder wrote.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 Phases, one result line each; any failure raises and the exit code is not 0:
 
 1. environment: the card's name and power limit, torch and nvcc versions,
-   and the port's native rANS library (built with g++; without it the
-   entropy coder would fall back to zlib and change what is measured);
+   and the port's native library with its three sources (rANS, the grid
+   KNN, the spanning-tree orientation; built with g++: without it the
+   entropy coder would fall back to zlib and the KNN to a KD-tree, and
+   change what is measured);
 2. build: nvcc compiles the port's CUDA sources (``csrc/*.cu``); ptxas's
    registers and spills per kernel (no spills allowed);
 3. kernel check: the fused transcode kernel against its plain PyTorch version
@@ -67,9 +70,29 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     8 frames, and once at full size for its time;
 16. transcode, then decode: phase 4's transcoded videos under the patch
     stream's atlas, decoded; the point count and the share of points at a
-    position that the input's decode does not have;
+    position that the input's decode does not have; D1, D2 and Y/U/V PSNR
+    of ``METRIC_FRAMES`` of the 32 transcoded clouds against the input
+    stream's clouds (normals on the card), with the seconds per frame;
 17. decode app: ``apps/decode.py --device=cuda`` on the stream file, PLYs
-    written, checksums equal to the library call's.
+    written, checksums equal to the library call's;
+18. normals: ``compute_normals`` and ``generate_normals`` on a dense cloud of
+    a real frame's size (``make_dense_frame``), on the card and on the CPU:
+    seconds of each, of the host KNN, the device's covariance + ``eigh`` and
+    the host's spanning tree; covariances equal bit for bit; the share of
+    oriented normals beyond 1e-5 and 1e-3 rad between card and CPU;
+19. encoder streams: each committed stream that the V-PCC encoder wrote
+    (``tests/fixtures_torch/``) decoded on the card: the reference decoder's
+    checksums (committed beside the stream) and the ``device=cpu`` decode's;
+    then transcoded on the card (``reencode``, geometry QP 32 / attribute QP
+    42), bytes equal to ``device=cpu``;
+20. metrics: ``compute_sequence_metrics`` of those decodes against the
+    committed source clouds, normals on the card: every field that passes
+    through no normal equal to the committed reference value, D2 within
+    ``D2_BOUND_DB`` (PSNRs) and ``D2_BOUND_REL`` (mse, Hausdorff); the same
+    of the transcoded streams' decodes (printed);
+21. metrics apps: ``apps/decode.py --computeMetrics`` and ``apps/metrics.py``
+    on the first encoder stream with ``--device=cuda``: summary lines equal
+    to the library call's.
 
 The kernel table as JSON and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
@@ -93,15 +116,21 @@ import numpy as np
 import torch
 
 import rabbit_transcoding_tpu_torch
-from rabbit_transcoding_tpu_torch import native
+from rabbit_transcoding_tpu_torch import native, testdata
 from rabbit_transcoding_tpu_torch.ops import _build
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.apps import decode as decode_app
+from rabbit_transcoding_tpu_torch.apps import metrics as metrics_app
 from rabbit_transcoding_tpu_torch.apps import stream as stream_app
 from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import (
     VideoBitstream,
 )
+from rabbit_transcoding_tpu_torch.core.gof import GroupOfFrames
 from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
+from rabbit_transcoding_tpu_torch.encoder import normals as nm
+from rabbit_transcoding_tpu_torch.metrics.metrics import (
+    compute_sequence_metrics,
+)
 from rabbit_transcoding_tpu_torch.ops.events import median_ms
 from rabbit_transcoding_tpu_torch.testdata import (
     make_stream, stream_coeffs, stream_planes, with_input_qps,
@@ -134,6 +163,23 @@ SMALL = (8, 256, 256)
 MAX_COLOR_SHARE = 1e-4
 # a full-size CPU decode is run when the small one predicts less than this
 CPU_FULL_LIMIT_S = 60.0
+# the frames of the transcoded main-path GOF whose quality is measured
+METRIC_FRAMES = tuple(range(0, FRAMES, 4))
+# points asked of ``make_dense_frame`` for the normals phase (~480,000 left
+# after the duplicates go: a real frame's size)
+NORMALS_POINTS = 800_000
+# oriented unit normals, card against CPU (cuSOLVER against LAPACK): the
+# share of normals further than 1e-3 rad apart may be at most this (measured:
+# none beyond 1e-5 rad, the largest angle 4.0e-6 rad; a flipped component of
+# the spanning tree would show here)
+MAX_NORMAL_SHARE = 1e-4
+# D2 PSNRs with the normals computed on the card against the committed
+# reference values (normals by the reference's eigh on the CPU), in dB
+# (measured: at most 3.9e-7 dB)
+D2_BOUND_DB = 1e-5
+# the same of ``d2_mse`` and ``d2_hausdorff``, relative to the reference value
+D2_BOUND_REL = 1e-6
+D2_FIELDS = ("d2_mse", "d2_psnr", "d2_hausdorff", "d2_hausdorff_psnr")
 
 
 def phase(name: str, **fields) -> None:
@@ -579,13 +625,44 @@ def transcode_then_decode_phase(patch_data: bytes, plain_data: bytes,
         new = ~np.isin(_position_keys(a), _position_keys(b))
         points += a.point_count
         moved += int(new.sum())
+    check(len(clouds) == FRAMES and points > 0,
+          "transcode_then_decode: nothing decoded")
+    # the quality the transcode costs: the transcoded clouds against the
+    # input stream's clouds (the GPU machine has no source cloud of this
+    # content), normals of the input's clouds computed on the card
+    t0 = time.perf_counter()
+    per_frame, summary = compute_sequence_metrics(
+        [source[i] for i in METRIC_FRAMES],
+        [clouds[i] for i in METRIC_FRAMES], device=dev)
+    metrics_s = time.perf_counter() - t0
+    y, u, v = summary.color_psnr
     phase("transcode_then_decode", wall_s=f"{wall:.4f}", points=points,
           source_points=sum(ps.point_count for ps in source),
           points_at_new_positions=moved,
           share_at_new_positions=f"{moved / max(points, 1):.6f}",
+          frames_measured=f"{len(per_frame)} of {FRAMES}",
+          d1_psnr=f"{summary.d1_psnr:.4f}", d2_psnr=f"{summary.d2_psnr:.4f}",
+          d1_hausdorff_psnr=f"{summary.d1_hausdorff_psnr:.4f}",
+          y_psnr=f"{y:.4f}", u_psnr=f"{u:.4f}", v_psnr=f"{v:.4f}",
+          d1_psnr_per_frame=[round(float(m.d1_psnr), 4) for m in per_frame],
+          metrics_s=f"{metrics_s:.3f}",
+          metrics_s_per_frame=f"{metrics_s / len(per_frame):.3f}",
           card=repr(card))
-    check(len(clouds) == FRAMES and points > 0,
-          "transcode_then_decode: nothing decoded")
+    check(all(np.isfinite(x) and 10.0 < x < 100.0
+              for x in (summary.d1_psnr, summary.d2_psnr, y, u, v)),
+          f"transcode_then_decode: metrics {summary}")
+
+
+def _run_app(main, argv, work: Path) -> tuple[int, list[str]]:
+    text = io.StringIO()
+    old = os.getcwd()
+    os.chdir(work)      # the apps write their timings files where they run
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = main(argv)
+    finally:
+        os.chdir(old)
+    return rc, text.getvalue().splitlines()
 
 
 def decode_app_phase(data: bytes, clouds: list, dev, card) -> None:
@@ -594,19 +671,12 @@ def decode_app_phase(data: bytes, clouds: list, dev, card) -> None:
     work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "decode"
     work.mkdir(parents=True, exist_ok=True)
     (work / "in.bin").write_bytes(data)
-    text = io.StringIO()
-    old = os.getcwd()
-    os.chdir(work)      # the app writes its timings file where it runs
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(text):
-            rc = decode_app.main(["--compressedStreamPath=in.bin",
-                                  "--reconstructedDataPath=rec_%04d.ply",
-                                  f"--device={dev.type}"])
-    finally:
-        os.chdir(old)
+    rc, lines = _run_app(decode_app.main, [
+        "--compressedStreamPath=in.bin",
+        "--reconstructedDataPath=rec_%04d.ply", f"--device={dev.type}"], work)
     wall = time.perf_counter() - t0
-    sums = [ln.split(": ")[1] for ln in text.getvalue().splitlines()
+    sums = [ln.split(": ")[1] for ln in lines
             if ln.startswith("checksum frame")]
     want = [ps.compute_checksum().hex() for ps in clouds]
     plys = sorted(work.glob("rec_*.ply"))
@@ -620,6 +690,236 @@ def decode_app_phase(data: bytes, clouds: list, dev, card) -> None:
     check(sums == want, "decode app: checksums differ from the library's")
     for p in plys:
         p.unlink()
+
+
+def _timed(fn, dev=None):
+    t0 = time.perf_counter()
+    out = fn()
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def normals_phase(dev, card) -> None:
+    """18. The normals of a dense cloud of a real frame's size, on the card
+    and on the CPU."""
+    cpu = torch.device("cpu")
+    cloud, make_s = _timed(
+        lambda: testdata.make_dense_frame(0, n=NORMALS_POINTS))
+    pts = cloud.positions.astype(np.float32)
+    # the parts, one by one: host KNN, covariance + eigh on the card, tree
+    idx, knn_s = _timed(lambda: nm.knn_indices(pts, 16))
+    tp = torch.from_numpy(pts)
+    ti = torch.from_numpy(idx).long()
+    tp_g, ti_g = tp.to(dev), ti.to(dev)
+    _timed(lambda: nm._pca_normals(tp_g[:1000], ti_g[:1000].clamp(max=999)),
+           dev)                                                 # warm-up
+
+    def cov(p, i):
+        nbrs = p[i]
+        return nm._cov(nbrs - (nm._sum_k(nbrs) / nbrs.shape[1])[:, None, :])
+
+    cov_g, cov_s = _timed(lambda: cov(tp_g, ti_g), dev)
+    _, eigh_s = _timed(lambda: nm._eigh(cov_g), dev)
+    pca_g, pca_s = _timed(lambda: nm._pca_normals(tp_g, ti_g), dev)
+    try:        # why ``nm._eigh`` calls cuSOLVER 16,384 matrices at a time
+        torch.linalg.eigh(cov_g[:32767])
+        one_call = "accepted"
+    except RuntimeError as err:     # only cuSOLVER's refusal of the batch
+        if "CUSOLVER_STATUS_INVALID_VALUE" not in str(err):
+            raise
+        one_call = "refused"
+    cov_c, cov_cpu_s = _timed(lambda: cov(tp, ti))
+    _, eigh_cpu_s = _timed(lambda: nm._eigh(cov_c))
+    cov_equal = bool(torch.equal(cov_g.cpu(), cov_c))
+    pca_host = pca_g.cpu().numpy()
+    tree, tree_s = _timed(lambda: nm.orient_spanning_tree(pca_host, pts, idx))
+    # the entry points, whole
+    (got, _), card_s = _timed(lambda: nm.compute_normals(pts, device=dev))
+    (want, _), cpu_s = _timed(lambda: nm.compute_normals(pts, device=cpu))
+    m = testdata.normals_mismatch(got, want)
+    # the entry point took the tree, not the sweeps it falls back to
+    tree = tree / np.maximum(np.linalg.norm(tree, axis=1, keepdims=True),
+                             1e-12)
+    took_tree = bool(np.array_equal(got, tree.astype(np.float32)))
+    gen_g, gen_s = _timed(lambda: nm.generate_normals(pts, device=dev))
+    gen_c, gen_cpu_s = _timed(lambda: nm.generate_normals(pts, device=cpu))
+    mg = testdata.normals_mismatch(gen_g["normals"], gen_c["normals"])
+    phase("normals", points=len(pts), make_s=f"{make_s:.3f}",
+          host_knn_s=f"{knn_s:.3f}", device_cov_s=f"{cov_s:.4f}",
+          device_eigh_s=f"{eigh_s:.4f}", device_pca_s=f"{pca_s:.4f}",
+          eigh_of_32767_in_one_call=one_call,
+          cpu_cov_s=f"{cov_cpu_s:.3f}", cpu_eigh_s=f"{eigh_cpu_s:.3f}",
+          host_tree_s=f"{tree_s:.3f}", covariances_equal=cov_equal,
+          compute_normals_took_tree=took_tree,
+          compute_normals_card_s=f"{card_s:.3f}",
+          compute_normals_cpu_s=f"{cpu_s:.3f}",
+          generate_normals_card_s=f"{gen_s:.3f}",
+          generate_normals_cpu_s=f"{gen_cpu_s:.3f}",
+          card_vs_cpu=json.dumps(m), generate_card_vs_cpu=json.dumps(mg),
+          card=repr(card))
+    check(len(pts) > 250_000, f"normals: only {len(pts)} points")
+    check(cov_equal, "normals: covariances differ between card and CPU")
+    check(took_tree, "normals: compute_normals is not the spanning tree's "
+                     "orientation of its PCA normals")
+    check(got.shape == pts.shape and np.isfinite(got).all()
+          and np.allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-4),
+          "normals: not finite unit vectors")
+    for name, mm in (("compute_normals", m), ("generate_normals", mg)):
+        check(mm["share_beyond_1e-3"] <= MAX_NORMAL_SHARE,
+              f"{name}: card vs CPU normals {mm}")
+
+
+def encoder_stream_phase(dev, card) -> dict:
+    """19. The committed encoder streams on the card -> per stream its
+    source clouds, its record, its decode and its transcode's decode."""
+    cpu = torch.device("cpu")
+    params = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                  mode="reencode")
+    streams = {}
+    for name in testdata.ENCODER_STREAMS:
+        data, sources, record = testdata.load_encoder_stream(name)
+        clouds, _, wall = decode_clouds(data, dev)
+        clouds_cpu, _, cpu_s = decode_clouds(data, cpu)
+        sums = [ps.compute_checksum().hex() for ps in clouds]
+        tc.LAUNCHES = 0
+        out, t_s = _timed(lambda: transcode_bytes(data, dev, params))
+        launches = tc.LAUNCHES
+        out_cpu = transcode_bytes(data, cpu, params)
+        out_clouds, _, _ = decode_clouds(out, dev)
+        phase("encoder_stream", stream=name, bytes=len(data),
+              frames=len(clouds),
+              points=[ps.point_count for ps in clouds],
+              checksums_equal_reference=sums == record["checksums"],
+              equal_to_cpu=clouds_equal(clouds, clouds_cpu),
+              decode_s=f"{wall:.3f}", cpu_decode_s=f"{cpu_s:.3f}",
+              transcode_s=f"{t_s:.3f}", transcoded_bytes=len(out),
+              transcode_bytes_equal_cpu=out == out_cpu,
+              kernel_launches=launches, card=repr(card))
+        check(sums == record["checksums"],
+              f"{name}: the card's decode does not have the reference "
+              f"decoder's checksums")
+        check(clouds_equal(clouds, clouds_cpu),
+              f"{name}: card and CPU decodes differ")
+        check(out == out_cpu and out != data,
+              f"{name}: card and CPU transcodes differ")
+        check(len(out_clouds) == len(clouds), f"{name}: transcode lost frames")
+        streams[name] = (sources, record, clouds, out_clouds)
+    return streams
+
+
+def _exact_fields_equal(got, want) -> list[str]:
+    """The names of the fields that pass through no normal and differ."""
+    import dataclasses
+
+    return [f.name for f in dataclasses.fields(got)
+            if f.name not in D2_FIELDS
+            and getattr(got, f.name) != getattr(want, f.name)]
+
+
+def metrics_phase(streams: dict, dev, card) -> None:
+    """20. The metrics of the encoder streams' decodes, normals on the
+    card, against the committed reference values."""
+    for name, (sources, record, clouds, out_clouds) in streams.items():
+        (per_frame, summary), wall = _timed(
+            lambda: compute_sequence_metrics(sources, clouds, device=dev))
+        want = record["metrics_summary"]
+        differing = _exact_fields_equal(summary, want)
+        for got_f, want_f in zip(per_frame, record["metrics_per_frame"]):
+            differing += _exact_fields_equal(got_f, want_f)
+        d2 = {f: (abs(getattr(summary, f) - getattr(want, f))
+                  if np.isfinite(getattr(want, f)) else
+                  float(getattr(summary, f) != getattr(want, f)))
+              for f in D2_FIELDS}
+        d2_rel = {f: d2[f] / max(abs(getattr(want, f)), 1e-30)
+                  for f in ("d2_mse", "d2_hausdorff")
+                  if np.isfinite(getattr(want, f))}
+        _, t_summary = compute_sequence_metrics(sources, out_clouds,
+                                                device=dev)
+        phase("metrics", stream=name, frames=len(per_frame),
+              exact_fields_equal_reference=not differing,
+              d1_psnr=f"{summary.d1_psnr:.4f}",
+              d2_psnr=f"{summary.d2_psnr:.6f}",
+              reference_d2_psnr=f"{want.d2_psnr:.6f}",
+              d2_abs_deltas=json.dumps(d2),
+              d2_rel_deltas=json.dumps(d2_rel),
+              y_psnr=f"{summary.color_psnr[0]:.4f}",
+              seconds=f"{wall:.3f}",
+              s_per_frame=f"{wall / len(per_frame):.3f}",
+              transcoded_d1_psnr=f"{t_summary.d1_psnr:.4f}",
+              transcoded_d2_psnr=f"{t_summary.d2_psnr:.4f}",
+              transcoded_y_psnr=f"{t_summary.color_psnr[0]:.4f}",
+              card=repr(card))
+        check(not differing, f"{name}: fields differ from the reference "
+                             f"values: {differing}")
+        check(d2["d2_psnr"] <= D2_BOUND_DB
+              and d2["d2_hausdorff_psnr"] <= D2_BOUND_DB
+              and all(v <= D2_BOUND_REL for v in d2_rel.values()),
+              f"{name}: D2 against the reference values: {d2} {d2_rel}")
+
+
+def metrics_app_phase(streams: dict, dev, card) -> None:
+    """21. ``rabbit-decode --computeMetrics`` and ``rabbit-metrics`` on the
+    first encoder stream: summary lines equal to the library call's."""
+    name = testdata.ENCODER_STREAMS[0]
+    sources, _, clouds, _ = streams[name]
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "metrics"
+    work.mkdir(parents=True, exist_ok=True)
+    GroupOfFrames(sources).write(str(work / "src_%04d.ply"), 0)
+    stream = os.path.join(testdata.ENCODER_STREAM_DIR, name + ".bin")
+    _, summary = compute_sequence_metrics(sources, clouds, device=dev)
+    want = summary.print().splitlines()
+    t0 = time.perf_counter()
+    rc_d, out_d = _run_app(decode_app.main, [
+        f"--compressedStreamPath={stream}", "--computeMetrics=1",
+        "--uncompressedDataPath=src_%04d.ply",
+        "--reconstructedDataPath=rec_%04d.ply", f"--device={dev.type}"],
+        work)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_m, out_m = _run_app(metrics_app.main, [
+        "--uncompressedDataPath=src_%04d.ply",
+        "--reconstructedDataPath=rec_%04d.ply",
+        f"--frameCount={len(sources)}", f"--device={dev.type}"], work)
+    metrics_s = time.perf_counter() - t0
+    got_d = [ln for ln in out_d if ln in want]
+    got_m = out_m[-1 - len(want):-1]
+    phase("metrics_app", stream=name, decode_rc=rc_d, metrics_rc=rc_m,
+          decode_app_summary_equal=got_d == want,
+          metrics_app_summary_equal=got_m == want,
+          summary=repr(want), decode_app_s=f"{decode_s:.3f}",
+          metrics_app_s=f"{metrics_s:.3f}", card=repr(card))
+    check(rc_d == 0 and rc_m == 0, f"metrics apps: rc {rc_d}, {rc_m}")
+    check(got_d == want, f"rabbit-decode --computeMetrics printed {out_d}")
+    check(got_m == want, f"rabbit-metrics printed {out_m}")
+    for p in work.glob("*.ply"):
+        p.unlink()
+
+
+def slice_phases(dev, card) -> None:
+    """18.-21. The normals, the encoder streams, their metrics, the apps."""
+    normals_phase(dev, card)
+    streams = encoder_stream_phase(dev, card)
+    metrics_phase(streams, dev, card)
+    metrics_app_phase(streams, dev, card)
+
+
+def native_sources_built() -> bool:
+    """The native library answers for all three of its sources: the rANS
+    coder, the grid KNN and the spanning-tree orientation."""
+    if not native.available():
+        return False
+    try:
+        pts = np.arange(30, dtype=np.int32).reshape(10, 3)
+        idx, d2 = native.knn_grid(pts, pts, 4)
+        normals = np.tile(np.float32([[0.0, 0.0, 1.0]]), (10, 1))
+        comps = native.orient_normals_tree(
+            normals, pts, idx, np.ones(idx.shape, np.uint8),
+            np.zeros(3, np.float32))
+        blob = native.compress_i16(np.arange(64, dtype=np.int16))
+    except (RuntimeError, AttributeError):
+        return False
+    return bool(d2[0, 0] == 0 and comps >= 1 and blob)
 
 
 def main() -> int:
@@ -639,8 +939,11 @@ def main() -> int:
     phase("env", card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, nvcc=repr(nvcc_version),
           devices=torch.cuda.device_count(),
-          native_rans=native.available())
+          native_rans=native.available(),
+          native_knn_and_tree=native_sources_built())
     check(native.available(), "the native rANS library did not build")
+    check(native_sources_built(),
+          "the native library lacks the grid KNN or the tree orientation")
 
     # 2. build from the checkout's sources
     seconds = _build.build(force=True)
@@ -822,6 +1125,8 @@ def main() -> int:
     transcode_then_decode_phase(patch_streams[0], data, main_out, clouds,
                                 dev, card)
     decode_app_phase(patch_streams[0], clouds, dev, card)
+    # 18.-21. normals, the encoder's streams, the metrics, their apps
+    slice_phases(dev, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
     k_ms, k_dev, p_ms, bound, by, dense = times["luma"]

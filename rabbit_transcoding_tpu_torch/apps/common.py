@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 
 from ..utils.config import OptionRegistry
@@ -28,3 +30,26 @@ def parse_or_help(reg: OptionRegistry, argv, params, title: str):
         print(f"warning: {w}", file=sys.stderr)
     reg.apply_to_dataclass(params)
     return params
+
+
+@contextlib.contextmanager
+def profile_to(profile_dir: str, device, name: str):
+    """``--profileDir``: a ``torch.profiler`` trace of the block (host
+    operators, and the card's kernels when ``device`` is a CUDA device),
+    written as ``<profile_dir>/<name>.pt.trace.json`` (Chrome trace format)
+    where the reference writes a ``jax.profiler`` trace.  An empty
+    ``profile_dir`` profiles nothing."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(profile_dir, f"{name}.pt.trace.json"))
+    print(f"profiler trace written to {profile_dir}")

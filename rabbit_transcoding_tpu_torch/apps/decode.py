@@ -1,20 +1,23 @@
 """rabbit-decode on PyTorch: the PccAppDecoder analog.
 
 Port of ``rabbit_transcoding_tpu/apps/decode.py``: parse -> per-atlas decode
--> write PLYs, print the clouds' checksums, hash-SEI self check, ``--trace``
-conformance logs (``dec_*``), per-stage timings into timings_decoder.txt.
+-> write PLYs, print the clouds' checksums, optional metrics vs the source
+sequence (``--computeMetrics``), hash-SEI self check, ``--trace`` conformance
+logs (``dec_*``), the conformance comparator (``--checkConformance``),
+per-stage timings into timings_decoder.txt.
 
     python -m rabbit_transcoding_tpu_torch.apps.decode \\
         --compressedStreamPath=in.bin \\
         --reconstructedDataPath=rec_%04d.ply [--device=cuda|cpu]
 
-``--device=cuda`` (the default) raises when there is no GPU.  The metrics
-(``--computeMetrics``), the conformance comparator and ``--profileDir`` are
-accepted with the reference's names and raise until they are ported.
+``--device=cuda`` (the default) raises when there is no GPU.
+``--profileDir`` writes a ``torch.profiler`` trace of the run into that
+directory.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from ..bitstream import V3CReader
@@ -23,13 +26,9 @@ from ..codec.patch_frame import decode_patch_frames
 from ..core.gof import GroupOfFrames
 from ..decoder.decoder import Decoder, DecoderParameters
 from ..device import resolve
+from ..metrics.metrics import MetricsParams, compute_sequence_metrics
 from ..utils.timing import Stopwatch, print_run_footer
-from .common import build_registry, parse_or_help
-
-
-# reference options the port accepts but does not implement yet -> the
-# ROADMAP item that ports them
-_NOT_PORTED = {"computeMetrics": 7, "checkConformance": 9, "profileDir": 9}
+from .common import build_registry, parse_or_help, profile_to
 
 
 def main(argv=None) -> int:
@@ -43,7 +42,8 @@ def main(argv=None) -> int:
             "resolution": (1023, "geometry PSNR peak resolution"),
             "nbThread": (0, "thread count (0 = auto)"),
             "trace": (False, "write dec_* conformance trace logs"),
-            "profileDir": ("", "profiler trace directory (not ported yet)"),
+            "profileDir": ("", "write a torch.profiler trace to this "
+                                   "directory"),
             # metrics sub-options (PccAppDecoder.cpp:172-220 metricsParams)
             "normalDataPath": ("", "source normals PLY template (D2)"),
             "frameCount": (0, "frames to compare (0 = all decoded)"),
@@ -64,15 +64,15 @@ def main(argv=None) -> int:
     )
     if parse_or_help(reg, argv, params, "rabbit-decode") is None:
         return 0
-    for name, item in _NOT_PORTED.items():
-        if reg[name]:
-            raise NotImplementedError(
-                f"--{name} is not ported yet (ROADMAP, queue 1 item {item})")
     if not params.compressedStreamPath:
         print("error: --compressedStreamPath is required", file=sys.stderr)
         return 1
     device = resolve(reg["device"])
+    with profile_to(reg["profileDir"], device, "rabbit-decode"):
+        return _run(params, reg, device)
 
+
+def _run(params, reg, device) -> int:
     sw = Stopwatch()
     sw.start()
     reader = V3CReader()
@@ -116,6 +116,40 @@ def main(argv=None) -> int:
         for i, ps in enumerate(all_clouds):
             print(f"checksum frame {frame0 + i}: {ps.compute_checksum().hex()}")
     sw.stop()
+
+    if params.computeMetrics and params.uncompressedDataPath:
+        template = os.path.join(
+            reg["uncompressedDataFolder"], params.uncompressedDataPath
+        )
+        count = len(all_clouds)
+        if reg["frameCount"]:
+            count = min(count, int(reg["frameCount"]))
+        sources = GroupOfFrames.load(
+            template, frame0, count,
+            color_transform=params.colorTransform,
+        )
+        if reg["normalDataPath"]:
+            normals = GroupOfFrames.load(reg["normalDataPath"], frame0, count)
+            for s, n in zip(sources, normals):
+                s.normals = n.normals
+        _, summary = compute_sequence_metrics(
+            list(sources), all_clouds[:count],
+            MetricsParams(resolution=reg["resolution"],
+                          drop_duplicates=int(reg["dropdups"]),
+                          neighbors_proc=int(reg["neighborsProc"])),
+            device=device,
+        )
+        print(summary.print())
+
+    if reg["checkConformance"]:
+        from ..conformance.conformance import ConformanceParams, check
+
+        result = check(ConformanceParams(
+            path=reg["path"], level=int(reg["level"]), fps=int(reg["fps"]),
+        ))
+        print(result.report())
+        if not result.ok:
+            print("conformance: FAILED", file=sys.stderr)
 
     if tracer is not None:
         tracer.close()

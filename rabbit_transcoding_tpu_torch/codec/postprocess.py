@@ -121,7 +121,7 @@ def apply_geometry_smoothing(
     if use_knn:
         raise NotImplementedError(
             "full-KNN geometry smoothing (knn_smooth) is not ported yet: it "
-            "comes with the encoder (ROADMAP, queue 1 item 8)")
+            "comes with the encoder (ROADMAP, queue 1 item 8b)")
     if sei is None or sei.gs_smoothing_method_type != 1:
         return clouds
     grid_size = sei.gs_smoothing_grid_size_minus2 + 2

@@ -92,7 +92,7 @@ class Decoder:
         if data[:4] == b"\x00\x00\x00\x01" or data[:3] == b"\x00\x00\x01":
             raise NotImplementedError(
                 f"foreign (Annex-B) {vtype.name} video is not ported yet "
-                f"(ROADMAP, queue 1 item 9)")
+                f"(ROADMAP, queue 1 item 9b)")
         raise ValueError(
             f"unrecognised {vtype.name} video payload (neither RBV nor "
             f"Annex-B)"

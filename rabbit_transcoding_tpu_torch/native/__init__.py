@@ -1,6 +1,7 @@
-"""Native (C++) entropy coding, loaded via ctypes: the rANS part of the
-reference's ``native`` package (``rans.cpp``: RLE0 + order-0 rANS, plain and
-context-banded).
+"""Native (C++) runtime components, loaded via ctypes: the reference's
+``native`` package. ``rans.cpp`` is the entropy coder (RLE0 + order-0 rANS,
+plain and context-banded), ``knn_grid.cpp`` the exact KNN over integer voxel
+clouds, ``normals_tree.cpp`` the spanning-tree orientation of normals.
 
 The shared library is built at first use with g++ into ``build/native/`` at
 the root of the checkout (never beside the source); everything degrades to
@@ -16,10 +17,12 @@ import subprocess
 import sys
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRCS = [os.path.join(_DIR, "rans.cpp")]
+_SRCS = [os.path.join(_DIR, "rans.cpp"),
+         os.path.join(_DIR, "normals_tree.cpp"),
+         os.path.join(_DIR, "knn_grid.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                           "native")
-_LIB = os.path.join(_BUILD_DIR, "librbv_rans.so")
+_LIB = os.path.join(_BUILD_DIR, "librbv_native.so")
 
 _lib = None
 
@@ -83,6 +86,20 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p,         # seg_off, seg_len
         ctypes.c_void_p, ctypes.c_int64,          # seg_band, n_segs
         ctypes.c_int32,                           # n_bands
+    ]
+    lib.rbv_knn_grid.restype = ctypes.c_int64
+    lib.rbv_knn_grid.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,          # query, nq
+        ctypes.c_void_p, ctypes.c_int64,          # data, nd
+        ctypes.c_int64, ctypes.c_int32,           # k, cell_shift
+        ctypes.c_void_p, ctypes.c_void_p,         # out_idx, out_d2
+    ]
+    lib.rbv_orient_normals_tree.restype = ctypes.c_int64
+    lib.rbv_orient_normals_tree.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,         # normals, points
+        ctypes.c_void_p, ctypes.c_void_p,         # nbr_idx, nbr_ok
+        ctypes.c_int64, ctypes.c_int64,           # n, k
+        ctypes.c_void_p,                          # viewpoint
     ]
     _lib = lib
     return lib
@@ -185,3 +202,62 @@ def decompress_i16_bands(blob: bytes, n_elements: int, segments,
     if consumed < 0:
         raise RuntimeError("rbv_decompress_i16_bands failed (corrupt?)")
     return out
+
+
+def knn_grid(query, data, k: int, cell_shift: int = -1):
+    """Exact KNN over integer voxel clouds (native/knn_grid.cpp) ->
+    (idx (nq,k) int32 with -1 padding, d2 (nq,k) float32 with inf
+    padding), distance-sorted, ties toward the smaller index.  Raises
+    RuntimeError when the native library is unavailable — callers fall
+    back to scipy's cKDTree."""
+    import numpy as np
+
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    q = np.ascontiguousarray(query, np.int32)
+    d = np.ascontiguousarray(data, np.int32)
+    if q.ndim != 2 or q.shape[1] != 3 or d.ndim != 2 or d.shape[1] != 3:
+        raise ValueError("query/data must be (N, 3)")
+    idx = np.empty((len(q), k), np.int32)
+    d2 = np.empty((len(q), k), np.float32)
+    rc = lib.rbv_knn_grid(
+        q.ctypes.data_as(ctypes.c_void_p), len(q),
+        d.ctypes.data_as(ctypes.c_void_p), len(d),
+        k, cell_shift,
+        idx.ctypes.data_as(ctypes.c_void_p),
+        d2.ctypes.data_as(ctypes.c_void_p),
+    )
+    if rc < 0:
+        raise RuntimeError("rbv_knn_grid failed (bad arguments?)")
+    return idx, d2
+
+
+def orient_normals_tree(normals, points, nbr_idx, nbr_ok, viewpoint) -> int:
+    """Spanning-tree sign orientation IN PLACE on `normals` (float32 C
+    array).  Returns the connected-component count.  Raises when the
+    native library is unavailable — callers fall back to the sweep
+    orientation (encoder/normals.py)."""
+    import numpy as np
+
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not (normals.flags.c_contiguous and normals.dtype == np.float32):
+        raise ValueError("normals must be C-contiguous float32")
+    pts = np.ascontiguousarray(points, np.float32)
+    idx = np.ascontiguousarray(nbr_idx, np.int32)
+    ok = np.ascontiguousarray(nbr_ok, np.uint8)
+    vp = np.ascontiguousarray(viewpoint, np.float32)
+    n, k = idx.shape
+    rc = lib.rbv_orient_normals_tree(
+        normals.ctypes.data_as(ctypes.c_void_p),
+        pts.ctypes.data_as(ctypes.c_void_p),
+        idx.ctypes.data_as(ctypes.c_void_p),
+        ok.ctypes.data_as(ctypes.c_void_p),
+        n, k,
+        vp.ctypes.data_as(ctypes.c_void_p),
+    )
+    if rc < 0:
+        raise RuntimeError("rbv_orient_normals_tree failed (bad indices?)")
+    return int(rc)

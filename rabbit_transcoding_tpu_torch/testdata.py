@@ -44,9 +44,23 @@ every coordinate stays within 10 bits.  Every fifth patch that is not on
 the last row or column is one block longer (80 pixels along its u axis), so
 its block bounding box overlaps its right or lower neighbour's and block
 ownership is contested; the ASPS declares that the first-coded patch wins.
+
+Source clouds.  ``make_frame`` (a deforming voxelised sphere with smooth
+colours), ``make_scene_frame`` (a textured multi-object scene) and
+``make_dense_frame`` (reference-scale density) are the reference's
+``testdata`` cloud makers, pure numpy: clouds with a known surface for the
+normals and the metrics.
+
+Encoder streams.  ``load_encoder_stream`` reads one of the small V3C streams
+that the reference's V-PCC encoder wrote (``tests/fixtures_torch/``, made by
+``tools/make_torch_fixtures.py``): real encoder output with its source
+clouds and the reference decoder's checksums and metrics beside it.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -67,6 +81,7 @@ from .bitstream.syntax import (
 )
 from .codec.mapstream import attr_bias, geo_bias, make_delta
 from .core.image import Video
+from .core.pointset import PointSet
 from .utils.enums import (
     AtlasTileType,
     CodecId,
@@ -293,3 +308,267 @@ def stream_coeffs(data: bytes, device=torch.device("cpu")) -> dict:
     """{(video type name, plane): int16 coefficients} of the lossy RBV
     planes of a V3C stream's first GOF."""
     return {k: p.q for k, p in stream_planes(data, device).items()}
+
+
+# ---------------------------------------------------------------------------
+# Source clouds (the reference's testdata cloud makers, numpy only)
+
+
+def make_frame(
+    frame: int = 0,
+    n: int = 40000,
+    radius: float = 100.0,
+    center: float = 128.0,
+    seed: int = 7,
+    vox_bits: int = 10,
+) -> PointSet:
+    rng = np.random.default_rng(seed)  # same base sphere; deforms over time
+    theta = np.arccos(1 - 2 * rng.uniform(0, 1, n))
+    phi = rng.uniform(0, 2 * np.pi, n)
+    # time-varying radial deformation = moving surface detail
+    r = radius * (
+        1.0
+        + 0.08 * np.sin(4 * theta + 0.3 * frame)
+        + 0.05 * np.cos(5 * phi - 0.2 * frame)
+    )
+    x = center + r * np.sin(theta) * np.cos(phi)
+    y = center + r * np.sin(theta) * np.sin(phi)
+    z = center + r * np.cos(theta)
+    maxv = (1 << vox_bits) - 1
+    pos = np.clip(np.round(np.stack([x, y, z], 1)), 0, maxv).astype(np.int32)
+    colors = np.clip(
+        np.stack(
+            [
+                128 + 90 * np.sin(pos[:, 0] / 12.0 + 0.1 * frame),
+                128 + 90 * np.cos(pos[:, 1] / 12.0),
+                128 + 60 * np.sin(pos[:, 2] / 8.0),
+            ],
+            1,
+        ),
+        0,
+        255,
+    ).astype(np.uint8)
+    return PointSet(positions=pos, colors=colors).remove_duplicates()
+
+
+def _ellipsoid(
+    rng, n: int, center: np.ndarray, radii: np.ndarray,
+    yaw: float = 0.0,
+) -> np.ndarray:
+    theta = np.arccos(1 - 2 * rng.uniform(0, 1, n))
+    phi = rng.uniform(0, 2 * np.pi, n)
+    p = np.stack(
+        [
+            radii[0] * np.sin(theta) * np.cos(phi),
+            radii[1] * np.sin(theta) * np.sin(phi),
+            radii[2] * np.cos(theta),
+        ],
+        1,
+    )
+    if yaw:
+        c, s = np.cos(yaw), np.sin(yaw)
+        p = p @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    return p + center
+
+
+def make_scene_frame(
+    frame: int = 0,
+    n: int = 40000,
+    seed: int = 11,
+    vox_bits: int = 10,
+) -> PointSet:
+    """A textured multi-object scene — the stress content the single smooth
+    sphere lacks (round-2 verdict: smooth radial content flatters transform
+    codecs).  Three surfaces with mutual self-occlusion/disocclusion as
+    seen from the six projection planes:
+
+      * a large static torso ellipsoid with a sharp CHECKERBOARD texture
+        (hard color edges every 8 voxels);
+      * a rigidly TRANSLATING + rotating small ellipsoid (real motion
+        vectors for inter coding) with high-contrast stripes;
+      * a static thin slab behind both (gets occluded/disoccluded by the
+        moving part) with a two-tone split texture.
+    """
+    rng = np.random.default_rng(seed)  # same geometry; motion is analytic
+    half = int(2 ** (vox_bits - 1))
+    n1, n2 = int(n * 0.5), int(n * 0.25)
+    n3 = n - n1 - n2
+    # surface sizes follow the point budget (~1 point per surface voxel):
+    # sparser than that and segmentation rightly dumps points to the raw
+    # patch, which would turn the ladder into a raw-coding benchmark
+    r1 = float(np.sqrt(n1 / (4 * np.pi)))
+    r2 = float(np.sqrt(n2 / (4 * np.pi)))
+    torso = _ellipsoid(
+        rng, n1, np.array([half, half, half], float),
+        np.array([r1, 0.8 * r1, 1.2 * r1]),
+    )
+    # rigid motion: orbiting + rotating satellite at ~5 voxels/frame so
+    # block motion search (+/-6) can actually track it
+    orbit = 2.4 * r1
+    ang = 5.0 / orbit * frame
+    sat_center = np.array([
+        half + orbit * np.cos(ang),
+        half + orbit * np.sin(ang),
+        half + 0.5 * r1,
+    ])
+    sat = _ellipsoid(
+        rng, n2, sat_center,
+        np.array([0.8 * r2, 1.1 * r2, 0.8 * r2]),
+        yaw=0.05 * frame,
+    )
+    # thin background slab (a dense jittered grid: a true <=2-voxel-deep
+    # surface that the moving satellite occludes/disoccludes)
+    side = int(np.floor(np.sqrt(n3)))
+    gx, gz = np.meshgrid(np.arange(side), np.arange(side))
+    slab = np.stack(
+        [
+            half - side / 2.0 + gx.reshape(-1)[:n3]
+            + rng.uniform(-0.5, 0.5, min(n3, side * side)),
+            half + 2.2 * r1 + rng.uniform(0, 2, min(n3, side * side)),
+            half - side / 2.0 + gz.reshape(-1)[:n3]
+            + rng.uniform(-0.5, 0.5, min(n3, side * side)),
+        ],
+        1,
+    )
+    n3 = len(slab)
+    pos = np.concatenate([torso, sat, slab])
+    maxv = (1 << vox_bits) - 1
+    pos = np.clip(np.round(pos), 0, maxv).astype(np.int32)
+
+    # sharp textures (hard edges, no radial smoothness)
+    checker = ((pos[:n1, 0] // 8 + pos[:n1, 1] // 8 + pos[:n1, 2] // 8) % 2
+               ).astype(np.uint8)
+    torso_col = np.where(
+        checker[:, None] > 0,
+        np.array([[230, 40, 40]], np.uint8),
+        np.array([[25, 25, 210]], np.uint8),
+    )
+    stripes = ((pos[n1 : n1 + n2, 2] // 6) % 2).astype(np.uint8)
+    sat_col = np.where(
+        stripes[:, None] > 0,
+        np.array([[250, 250, 30]], np.uint8),
+        np.array([[10, 160, 60]], np.uint8),
+    )
+    split = (pos[n1 + n2 :, 0] > half).astype(np.uint8)
+    slab_col = np.where(
+        split[:, None] > 0,
+        np.array([[200, 200, 200]], np.uint8),
+        np.array([[60, 60, 60]], np.uint8),
+    )
+    colors = np.concatenate([torso_col, sat_col, slab_col]).astype(np.uint8)
+    return PointSet(positions=pos, colors=colors).remove_duplicates()
+
+
+def make_dense_frame(
+    frame: int = 0,
+    n: int = 500000,
+    seed: int = 13,
+    vox_bits: int = 10,
+) -> PointSet:
+    """Reference-scale content: vox10 density (>=300k points/frame after
+    dedupe — the 8i clouds the reference's CTC runs on are ~800k,
+    cfg/sequence/longdress_vox10.cfg:5-12).  The blobs
+    scene scaled to ~1 point/voxel surface density, plus an ARTICULATED
+    swinging limb (hinge rotation — a motion class the orbiting satellite
+    doesn't cover: every block has a different motion vector)."""
+    base = make_scene_frame(frame, n=int(n * 0.85), seed=seed,
+                            vox_bits=vox_bits)
+    rng = np.random.default_rng(seed + 1)
+    half = int(2 ** (vox_bits - 1))
+    n_limb = n - int(n * 0.85)
+    # cylinder surface swinging about a hinge near the torso top
+    length = 1.6 * float(np.sqrt(n / 8 / (4 * np.pi)))
+    radius = max(4.0, length / 6.0)
+    t = rng.uniform(0, 1, n_limb)            # along the limb
+    a = rng.uniform(0, 2 * np.pi, n_limb)    # around the limb
+    swing = 0.6 * np.sin(0.35 * frame)       # hinge angle over time
+    c, s = np.cos(swing), np.sin(swing)
+    lx = t * length
+    ly = radius * np.cos(a)
+    lz = radius * np.sin(a)
+    limb = np.stack([
+        half + 1.2 * length + (c * lx - s * lz),
+        half + ly,
+        half + 1.0 * length + (s * lx + c * lz),
+    ], 1)
+    maxv = (1 << vox_bits) - 1
+    limb = np.clip(np.round(limb), 0, maxv).astype(np.int32)
+    rings = ((limb[:, 0] // 5 + limb[:, 2] // 5) % 2).astype(np.uint8)
+    limb_col = np.where(
+        rings[:, None] > 0,
+        np.array([[240, 120, 20]], np.uint8),
+        np.array([[20, 40, 90]], np.uint8),
+    )
+    return PointSet(
+        positions=np.concatenate([base.positions, limb]),
+        colors=np.concatenate([base.colors, limb_col]),
+    ).remove_duplicates()
+
+
+def normals_mismatch(a: np.ndarray, b: np.ndarray) -> dict:
+    """How far two sets of unit normals are apart, row by row: the share of
+    rows whose angle (float64, rad) exceeds 1e-5 and 1e-3 and the largest
+    angle, as they are and with the sign ignored."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    ang = np.arctan2(np.linalg.norm(np.cross(a, b), axis=1),
+                     (a * b).sum(axis=1))
+    unsigned = np.minimum(ang, np.pi - ang)
+    return {"share_beyond_1e-5": float((ang > 1e-5).mean()),
+            "share_beyond_1e-3": float((ang > 1e-3).mean()),
+            "max_angle": float(ang.max()),
+            "unsigned_share_beyond_1e-5": float((unsigned > 1e-5).mean()),
+            "unsigned_share_beyond_1e-3": float((unsigned > 1e-3).mean()),
+            "unsigned_max_angle": float(unsigned.max())}
+
+
+SCENES = {
+    "sphere": make_frame,
+    "blobs": make_scene_frame,
+    "dense": make_dense_frame,
+}
+
+
+# ---------------------------------------------------------------------------
+# Streams written by the reference's V-PCC encoder (committed files)
+
+ENCODER_STREAM_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "tests", "fixtures_torch")
+# lossy RBV with MC and intra (the encoder's defaults); lossy occupancy with
+# the patch border filter; lossless geometry with EOM and raw points
+ENCODER_STREAMS = ("sphere_default", "scene_lossy_occupancy_pbf",
+                   "sphere_eom_lossless")
+
+
+def _unhex(v):
+    if isinstance(v, list):
+        return tuple(_unhex(x) for x in v)
+    return float.fromhex(v) if isinstance(v, str) else v
+
+
+def load_encoder_stream(name: str):
+    """-> (V3C bytes, the source clouds the encoder was given, the record:
+    ``checksums`` (hex, per decoded frame, the reference decoder's),
+    ``point_counts``, ``encoder_parameters``, and ``metrics_per_frame`` /
+    ``metrics_summary`` as ``QualityMetrics`` of the reference's
+    ``compute_sequence_metrics`` of its decode against the sources)."""
+    from .metrics.metrics import QualityMetrics
+
+    base = os.path.join(ENCODER_STREAM_DIR, name)
+    with open(base + ".bin", "rb") as f:
+        data = f.read()
+    with open(base + ".json", encoding="utf-8") as f:
+        record = json.load(f)
+    with np.load(base + "_source.npz") as z:
+        sources = [
+            PointSet(positions=z[f"positions_{i}"].astype(np.int32),
+                     colors=z[f"colors_{i}"])
+            for i in range(len(z.files) // 2)
+        ]
+
+    def metrics(d):
+        return QualityMetrics(**{k: _unhex(v) for k, v in d.items()})
+    record["metrics_per_frame"] = [metrics(d)
+                                   for d in record["metrics_per_frame"]]
+    record["metrics_summary"] = metrics(record["metrics_summary"])
+    return data, sources, record

@@ -55,7 +55,7 @@ _GEO_TYPES = {VideoType.GEOMETRY, VideoType.GEOMETRY_D0,
               VideoType.GEOMETRY_D1}
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP, queue 1 item {item})"
     )
@@ -166,7 +166,7 @@ class Transcoder:
         if vb is None or p.occupancyPrecision <= 0:
             return
         if not vb.data.startswith(b"RBV"):
-            raise _not_ported("foreign (Annex-B) occupancy video", 9)
+            raise _not_ported("foreign (Annex-B) occupancy video", "9b")
         info = rbv.probe(vb.data)
         # incoming precision is implicit: atlas width / occupancy video width
         asps = atlas.asps_list[0]
@@ -364,7 +364,7 @@ class Transcoder:
         standard VideoType slots and the attr_ext streams)."""
         p = self.params
         if not vb.data.startswith(b"RBV"):
-            raise _not_ported(f"foreign (Annex-B) {vtype.name} video", 9)
+            raise _not_ported(f"foreign (Annex-B) {vtype.name} video", "9b")
         info = rbv.probe(vb.data)
         if info["lossless"]:
             return self._reencode_lossless_filled(atlas, vb, qp, occ_mask)

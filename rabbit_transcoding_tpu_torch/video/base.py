@@ -42,7 +42,7 @@ def _check_rbv(codec_id: CodecId) -> None:
     if codec_id not in (CodecId.RBV, CodecId.RBV_LOSSLESS):
         raise NotImplementedError(
             f"codec {codec_id.name} is not ported yet (ROADMAP, queue 1 "
-            f"item 9: foreign route)"
+            f"item 9b: foreign route)"
         )
 
 

@@ -1,7 +1,9 @@
 """The port's push-pull background fill and the transcode of lossless input
 over an occupancy map, against the JAX package on the CPU.  Each package
 parses V3C bytes with its own reader; the two meet only in bytes and numpy
-arrays."""
+arrays.  The last case holds the committed encoder stream of
+``tests/fixtures_torch/`` against a fresh encode (this file already pays the
+encoder's start-up and has the time to spare)."""
 
 import dataclasses
 
@@ -24,7 +26,10 @@ from rabbit_transcoding_tpu.transcoder.transcoder import Transcoder as RefTransc
 from rabbit_transcoding_tpu_torch import bitstream
 from rabbit_transcoding_tpu_torch.bitstream import V3CReader, V3CWriter
 from rabbit_transcoding_tpu_torch.ops import dilate, occupancy
-from rabbit_transcoding_tpu_torch.testdata import make_stream
+from rabbit_transcoding_tpu_torch.testdata import (
+    load_encoder_stream,
+    make_stream,
+)
 from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 from rabbit_transcoding_tpu_torch.transcoder.transcoder import Transcoder
 from rabbit_transcoding_tpu_torch.utils.enums import VideoType
@@ -195,3 +200,25 @@ def test_fill_changes_the_output():
             VideoType.GEOMETRY].data
 
     assert geometry(filled) != geometry(bare)
+
+
+def test_committed_encoder_stream_equals_a_fresh_encode():
+    """``tests/fixtures_torch/sphere_default.bin`` (what the card decodes,
+    with the reference's checksums beside it) is what the encoder writes
+    today: a stale fixture fails here.  The generator script is the single
+    definition of the stream."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / (
+        "make_torch_fixtures.py")
+    spec = importlib.util.spec_from_file_location("make_torch_fixtures", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    data, sources, record = load_encoder_stream("sphere_default")
+    assert tool.encode("sphere_default") == data
+    for got, want in zip(sources, tool.source_clouds("sphere_default")):
+        np.testing.assert_array_equal(got.positions, want.positions)
+        np.testing.assert_array_equal(got.colors, want.colors)
+    assert record["encoder_parameters"] == tool.FIXTURES["sphere_default"][2]
+    assert len(data) < 1_000_000

@@ -156,6 +156,80 @@ def test_native_builds_outside_the_reference_package():
     assert native._LIB != ref_native._LIB
 
 
+# --- the native KNN and the spanning-tree orientation -------------------------
+def _int_cloud(seed: int, n: int, span: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, span, size=(n, 3)).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed,n,nq,span,k", [
+    (0, 4000, 1500, 64, 1), (1, 4000, 1500, 64, 5), (2, 9000, 3000, 300, 16),
+    (3, 7, 20, 8, 16)])
+def test_knn_grid_equal_to_the_reference_library(seed, n, nq, span, k):
+    """The same C++ source in two libraries: squared distances equal (never
+    compare indices across backends; here they are equal too, ties go to
+    the smaller index), and equal to an exact KD-tree's (tolerance 0)."""
+    from scipy.spatial import cKDTree
+
+    data = _int_cloud(seed, n, span)
+    query = _int_cloud(seed + 100, nq, span)
+    idx, d2 = native.knn_grid(query, data, k)
+    ref_idx, ref_d2 = ref_native.knn_grid(query, data, k)
+    np.testing.assert_array_equal(d2, ref_d2)
+    np.testing.assert_array_equal(idx, ref_idx)
+    kk = min(k, n)
+    want, _ = cKDTree(data).query(query, k=kk)
+    np.testing.assert_array_equal(
+        d2[:, :kk].astype(np.float64),
+        np.round(want.reshape(nq, kk) ** 2))
+    assert np.isinf(d2[:, kk:]).all() and (idx[:, kk:] == -1).all()
+
+
+def test_knn_grid_on_a_surface_matches_the_kdtree():
+    """tests/test_knn.py::TestGridKnn's cases through the native KNN: a
+    voxelised sphere, shifted queries, self first, a far outlier found."""
+    from scipy.spatial import cKDTree
+
+    pts = make_sphere_cloud(n_theta=100).positions
+    queries = pts[::7] + np.array([1, 0, 0], np.int32)
+    idx, d2 = native.knn_grid(queries, pts, 4)
+    want, _ = cKDTree(pts).query(queries, k=4)
+    np.testing.assert_array_equal(d2.astype(np.float64), np.round(want ** 2))
+    idx, d2 = native.knn_grid(pts, pts, 1)
+    assert (d2[:, 0] == 0).all()
+    np.testing.assert_array_equal(idx[:, 0], np.arange(len(pts)))
+    # exact, so a far query still finds its neighbour
+    idx, d2 = native.knn_grid(np.array([[900, 900, 900]], np.int32),
+                              np.zeros((10, 3), np.int32), 1)
+    assert d2[0, 0] == 3 * 900.0 ** 2 and idx[0, 0] == 0
+    with pytest.raises(ValueError):
+        native.knn_grid(np.zeros((3, 2), np.int32), pts, 1)
+
+
+@pytest.mark.parametrize("seed,gated", [(0, False), (1, True)])
+def test_orient_normals_tree_equal_to_the_reference_library(seed, gated):
+    """Same input arrays -> the same oriented normals and component count,
+    bit for bit (two bodies far apart, random unit normals)."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([_int_cloud(seed, 3000, 40),
+                          _int_cloud(seed + 1, 800, 20) + 500])
+    idx, d2 = native.knn_grid(pts, pts, 12)
+    normals = rng.standard_normal((len(pts), 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    ok = (d2 <= 9.0 if gated else np.ones(idx.shape, bool)).astype(np.uint8)
+    ok[:, 0] = 1
+    vp = np.array([10.0, -20.0, 300.0], np.float32)
+    got, want = normals.copy(), normals.copy()
+    comps = native.orient_normals_tree(got, pts, idx, ok, vp)
+    ref_comps = ref_native.orient_normals_tree(want, pts, idx, ok, vp)
+    assert comps == ref_comps >= 2
+    np.testing.assert_array_equal(got, want)
+    assert (got != normals).any()
+    with pytest.raises(ValueError):
+        native.orient_normals_tree(normals.astype(np.float64), pts, idx, ok,
+                                   vp)
+
+
 # --- the decoder's host copies -----------------------------------------------
 def _cloud_arrays(seed: int, n: int = 5000) -> dict:
     rng = np.random.default_rng(seed)

@@ -111,6 +111,41 @@ def test_cpu_decode_leaves_the_reference_and_jax_unimported(tmp_path):
     )
 
 
+def test_cpu_metrics_leave_the_reference_and_jax_unimported(tmp_path):
+    # a committed encoder stream decoded, its normals and metrics on the
+    # CPU, then the metrics and normals apps on the PLYs
+    _run(
+        "import os\n"
+        "from rabbit_transcoding_tpu_torch.apps import metrics, normals\n"
+        "from rabbit_transcoding_tpu_torch.bitstream import V3CReader\n"
+        "from rabbit_transcoding_tpu_torch.core.gof import GroupOfFrames\n"
+        "from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder\n"
+        "from rabbit_transcoding_tpu_torch.metrics.metrics import (\n"
+        "    compute_sequence_metrics)\n"
+        "from rabbit_transcoding_tpu_torch.testdata import (\n"
+        "    load_encoder_stream)\n"
+        "data, sources, record = load_encoder_stream(\n"
+        "    'sphere_eom_lossless')\n"
+        "reader = V3CReader()\n"
+        "clouds = Decoder(device='cpu').decode(\n"
+        "    reader.decode(reader.read(data)[0]))\n"
+        "_, got = compute_sequence_metrics(sources, clouds, device='cpu')\n"
+        "assert got.color_psnr == record['metrics_summary'].color_psnr\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "GroupOfFrames(sources).write('s_%04d.ply', 0)\n"
+        "GroupOfFrames(clouds).write('r_%04d.ply', 0)\n"
+        "assert normals.main(['--srcPlyPath=s_%04d.ply',\n"
+        "                     '--device=cpu']) == 0\n"
+        "assert metrics.main(['--uncompressedDataPath=s_%04d.ply',\n"
+        "                     '--reconstructedDataPath=r_%04d.ply',\n"
+        "                     '--normalDataPath=s_%04d_n.ply',\n"
+        "                     '--device=cpu']) == 0\n"
+        "ref = [m for m in sys.modules if m == 'rabbit_transcoding_tpu'\n"
+        "       or m.startswith('rabbit_transcoding_tpu.')]\n"
+        "assert not ref, ref\n"
+    )
+
+
 def _imported_modules(path: Path) -> set[str]:
     tree = ast.parse(path.read_text(), str(path))
     names = set()
@@ -125,7 +160,8 @@ def _imported_modules(path: Path) -> set[str]:
 def test_no_source_of_the_port_imports_the_reference_or_jax():
     files = sorted((ROOT / "rabbit_transcoding_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 45
+    assert len(files) > 55
+    assert ROOT / "rabbit_transcoding_tpu_torch/metrics/metrics.py" in files
     assert ROOT / "rabbit_transcoding_tpu_torch/apps/decode.py" in files
     bad = {
         str(f.relative_to(ROOT)): sorted(

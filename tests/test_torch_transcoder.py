@@ -115,10 +115,26 @@ def test_app_without_gpu_raises_for_cuda(stream, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("option", ["--profileDir=prof", "--trace=1",
                                     "--checkConformance=1"])
-def test_app_options_not_ported_raise(option, tmp_path, monkeypatch):
+def test_app_options_not_ported_raise(option, stream, tmp_path, monkeypatch,
+                                      capsys):
+    """These flags raised until the app ported them; now each runs
+    (``tests/test_torch_apps_small.py`` holds their output against the
+    reference app's), the transcoded bytes stay the plain run's, and the
+    table of flags that are not ported is gone."""
+    assert not hasattr(app, "_NOT_PORTED")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        app.main(["--compressedStreamPath=in.bin", option, "--device=cpu"])
+    (tmp_path / "in.bin").write_bytes(stream)
+    assert app.main(["--compressedStreamPath=in.bin", "--outStreamPath=o.bin",
+                     option, "--device=cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert (tmp_path / "o.bin").read_bytes() == _ref_transcode(stream)
+    marker = {"--trace=1": None,
+              "--checkConformance=1": "conformance: ",
+              "--profileDir=prof": "profiler trace written to prof"}[option]
+    assert marker is None or any(ln.startswith(marker) for ln in out), out
+    assert os.path.isdir(tmp_path / "prof") == (option == "--profileDir=prof")
+    logs = [n for n in os.listdir(tmp_path) if n.startswith("enc_")]
+    assert bool(logs) == (option == "--trace=1")
 
 
 @pytest.mark.parametrize("kw", [
