@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode,
-the V-PCC decode, and the normals and quality metrics on streams that the
-V-PCC encoder wrote.
+the V-PCC decode, the normals and quality metrics on streams that the
+V-PCC encoder wrote, and the port's V-PCC encoder.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -77,9 +77,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     written, checksums equal to the library call's;
 18. normals: ``compute_normals`` and ``generate_normals`` on a dense cloud of
     a real frame's size (``make_dense_frame``), on the card and on the CPU:
-    seconds of each, of the host KNN, the device's covariance + ``eigh`` and
-    the host's spanning tree; covariances equal bit for bit; the share of
-    oriented normals beyond 1e-5 and 1e-3 rad between card and CPU;
+    seconds of each, of the host KNN, the device's covariance, the host's
+    ``eigh`` (the host decomposes on every device, so that the card's
+    normals are the CPU's) and spanning tree; covariances and oriented
+    normals equal bit for bit between card and CPU;
 19. encoder streams: each committed stream that the V-PCC encoder wrote
     (``tests/fixtures_torch/``) decoded on the card: the reference decoder's
     checksums (committed beside the stream) and the ``device=cpu`` decode's;
@@ -92,7 +93,23 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     of the transcoded streams' decodes (printed);
 21. metrics apps: ``apps/decode.py --computeMetrics`` and ``apps/metrics.py``
     on the first encoder stream with ``--device=cuda``: summary lines equal
-    to the library call's.
+    to the library call's;
+22. ``encode_fixtures``: the port's encoder on the card, given each
+    committed encoder stream's source clouds and parameters: bytes equal
+    the same encode with ``device=cpu`` and the committed stream, and the
+    port's decoder on the card gives the committed checksums;
+23. ``encode_full``: two frames of ``make_dense_frame`` at an 8i frame's
+    scale (``ENCODE_POINTS``: ~820,000 points a frame after the duplicates
+    go, 10-bit geometry) with the encoder's defaults (a 1024-wide atlas,
+    lossy RBV with MC + intra), encoded twice on the card: seconds per
+    frame of both runs, the second run's stages and the card's busy share
+    (a CUDA-only trace), bytes equal run to run; the stream decoded on the
+    card, D1/D2/Y of its first frame against the source;
+24. ``encode_then_transcode``: that stream through ``Transcoder`` in
+    ``reencode`` mode at geometry QP 32 / attribute QP 42 on the card,
+    frames/s, bytes equal to a ``device=cpu`` transcode;
+25. ``encode_app``: ``apps/encode.py --device=cuda`` on the first committed
+    stream's sources written as PLYs: bytes equal to the library's.
 
 The kernel table as JSON and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
@@ -120,6 +137,7 @@ from rabbit_transcoding_tpu_torch import native, testdata
 from rabbit_transcoding_tpu_torch.ops import _build
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.apps import decode as decode_app
+from rabbit_transcoding_tpu_torch.apps import encode as encode_app
 from rabbit_transcoding_tpu_torch.apps import metrics as metrics_app
 from rabbit_transcoding_tpu_torch.apps import stream as stream_app
 from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import (
@@ -128,6 +146,8 @@ from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import (
 from rabbit_transcoding_tpu_torch.core.gof import GroupOfFrames
 from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
 from rabbit_transcoding_tpu_torch.encoder import normals as nm
+from rabbit_transcoding_tpu_torch.encoder.encoder import Encoder
+from rabbit_transcoding_tpu_torch.encoder.params import EncoderParameters
 from rabbit_transcoding_tpu_torch.metrics.metrics import (
     compute_sequence_metrics,
 )
@@ -168,10 +188,9 @@ METRIC_FRAMES = tuple(range(0, FRAMES, 4))
 # points asked of ``make_dense_frame`` for the normals phase (~480,000 left
 # after the duplicates go: a real frame's size)
 NORMALS_POINTS = 800_000
-# oriented unit normals, card against CPU (cuSOLVER against LAPACK): the
-# share of normals further than 1e-3 rad apart may be at most this (measured:
-# none beyond 1e-5 rad, the largest angle 4.0e-6 rad; a flipped component of
-# the spanning tree would show here)
+# oriented unit normals, card against CPU: the share of normals further than
+# 1e-3 rad apart may be at most this (both take the host's eigh
+# and are equal; a flipped component of the spanning tree would show here)
 MAX_NORMAL_SHARE = 1e-4
 # D2 PSNRs with the normals computed on the card against the committed
 # reference values (normals by the reference's eigh on the CPU), in dB
@@ -180,6 +199,12 @@ D2_BOUND_DB = 1e-5
 # the same of ``d2_mse`` and ``d2_hausdorff``, relative to the reference value
 D2_BOUND_REL = 1e-6
 D2_FIELDS = ("d2_mse", "d2_psnr", "d2_hausdorff", "d2_hausdorff_psnr")
+# points asked of ``make_dense_frame`` per frame of the full-size encode:
+# 819,974 in frame 0 after the duplicates go, the scale of an 8i VFB v2
+# frame (longdress_vox10.cfg: ~800,000 points, 10-bit geometry)
+ENCODE_POINTS = 1_400_000
+ENCODE_FRAMES = 2
+ENCODE_POINT_RANGE = (750_000, 850_000)
 
 
 def phase(name: str, **fields) -> None:
@@ -707,7 +732,8 @@ def normals_phase(dev, card) -> None:
     cloud, make_s = _timed(
         lambda: testdata.make_dense_frame(0, n=NORMALS_POINTS))
     pts = cloud.positions.astype(np.float32)
-    # the parts, one by one: host KNN, covariance + eigh on the card, tree
+    # the parts, one by one: host KNN, covariance on the card, host eigh and
+    # tree
     idx, knn_s = _timed(lambda: nm.knn_indices(pts, 16))
     tp = torch.from_numpy(pts)
     ti = torch.from_numpy(idx).long()
@@ -722,13 +748,6 @@ def normals_phase(dev, card) -> None:
     cov_g, cov_s = _timed(lambda: cov(tp_g, ti_g), dev)
     _, eigh_s = _timed(lambda: nm._eigh(cov_g), dev)
     pca_g, pca_s = _timed(lambda: nm._pca_normals(tp_g, ti_g), dev)
-    try:        # why ``nm._eigh`` calls cuSOLVER 16,384 matrices at a time
-        torch.linalg.eigh(cov_g[:32767])
-        one_call = "accepted"
-    except RuntimeError as err:     # only cuSOLVER's refusal of the batch
-        if "CUSOLVER_STATUS_INVALID_VALUE" not in str(err):
-            raise
-        one_call = "refused"
     cov_c, cov_cpu_s = _timed(lambda: cov(tp, ti))
     _, eigh_cpu_s = _timed(lambda: nm._eigh(cov_c))
     cov_equal = bool(torch.equal(cov_g.cpu(), cov_c))
@@ -747,8 +766,7 @@ def normals_phase(dev, card) -> None:
     mg = testdata.normals_mismatch(gen_g["normals"], gen_c["normals"])
     phase("normals", points=len(pts), make_s=f"{make_s:.3f}",
           host_knn_s=f"{knn_s:.3f}", device_cov_s=f"{cov_s:.4f}",
-          device_eigh_s=f"{eigh_s:.4f}", device_pca_s=f"{pca_s:.4f}",
-          eigh_of_32767_in_one_call=one_call,
+          host_eigh_s=f"{eigh_s:.4f}", device_pca_s=f"{pca_s:.4f}",
           cpu_cov_s=f"{cov_cpu_s:.3f}", cpu_eigh_s=f"{eigh_cpu_s:.3f}",
           host_tree_s=f"{tree_s:.3f}", covariances_equal=cov_equal,
           compute_normals_took_tree=took_tree,
@@ -757,9 +775,11 @@ def normals_phase(dev, card) -> None:
           generate_normals_card_s=f"{gen_s:.3f}",
           generate_normals_cpu_s=f"{gen_cpu_s:.3f}",
           card_vs_cpu=json.dumps(m), generate_card_vs_cpu=json.dumps(mg),
+          normals_equal_cpu=bool(np.array_equal(got, want)),
           card=repr(card))
     check(len(pts) > 250_000, f"normals: only {len(pts)} points")
     check(cov_equal, "normals: covariances differ between card and CPU")
+    check(np.array_equal(got, want), "normals: card and CPU normals differ")
     check(took_tree, "normals: compute_normals is not the spanning tree's "
                      "orientation of its PCA normals")
     check(got.shape == pts.shape and np.isfinite(got).all()
@@ -902,6 +922,171 @@ def slice_phases(dev, card) -> None:
     streams = encoder_stream_phase(dev, card)
     metrics_phase(streams, dev, card)
     metrics_app_phase(streams, dev, card)
+
+
+def encode_bytes(sources, params: dict, device) -> tuple[bytes, Encoder,
+                                                        list]:
+    """The port's encoder on ``device`` -> (V3C bytes, the encoder, its
+    closed-loop clouds)."""
+    encoder = Encoder(EncoderParameters(**params), device)
+    context, recon = encoder.encode(GroupOfFrames(sources))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return write_context(context), encoder, recon
+
+
+def encode_fixtures_phase(dev, card) -> None:
+    """22. The committed encoder streams re-encoded on the card from their
+    committed sources and parameters."""
+    cpu = torch.device("cpu")
+    for name in testdata.ENCODER_STREAMS:
+        data, sources, record = testdata.load_encoder_stream(name)
+        params = record["encoder_parameters"]
+        (got, _, _), card_s = _timed(lambda: encode_bytes(sources, params,
+                                                          dev))
+        (want, _, _), cpu_s = _timed(lambda: encode_bytes(sources, params,
+                                                          cpu))
+        clouds, _, _ = decode_clouds(got, dev)
+        sums = [ps.compute_checksum().hex() for ps in clouds]
+        phase("encode_fixtures", stream=name, bytes=len(got),
+              equal_to_cpu=got == want, equal_to_committed=got == data,
+              checksums_equal_reference=sums == record["checksums"],
+              encode_s=f"{card_s:.3f}", cpu_encode_s=f"{cpu_s:.3f}",
+              card=repr(card))
+        check(got == want, f"{name}: card and CPU encodes differ")
+        check(got == data, f"{name}: the card's encode differs from the "
+                           f"committed stream")
+        check(sums == record["checksums"],
+              f"{name}: the decode of the card's encode does not have the "
+              f"reference decoder's checksums")
+
+
+def encode_full_phase(dev, card) -> bytes:
+    """23. Two frames at an 8i frame's scale, encoded twice on the card ->
+    the stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rabbit_transcoding_tpu_torch.ops.events import device_busy_us
+
+    sources, make_s = _timed(lambda: [
+        testdata.make_dense_frame(i, n=ENCODE_POINTS)
+        for i in range(ENCODE_FRAMES)])
+    counts = [ps.point_count for ps in sources]
+    check(ENCODE_POINT_RANGE[0] <= counts[0] <= ENCODE_POINT_RANGE[1],
+          f"encode_full: frame 0 has {counts[0]} points")
+    params = dict(frameCount=ENCODE_FRAMES, groupOfFramesSize=ENCODE_FRAMES)
+    tc.LAUNCHES = 0
+    (first, _, _), first_s = _timed(lambda: encode_bytes(sources, params,
+                                                         dev))
+    # the card's kernels only: no host operator is recorded
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (data, encoder, recon), second_s = _timed(
+            lambda: encode_bytes(sources, params, dev))
+    launches = tc.LAUNCHES
+    events = prof.key_averages()
+    busy_s = device_busy_us(events) * 1e-6
+    top = sorted((e for e in events if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    clouds, _, decode_s = decode_clouds(data, dev)
+    (_, summary), metrics_s = _timed(lambda: compute_sequence_metrics(
+        sources[:1], clouds[:1], device=dev))
+    context = V3CReader().decode(V3CReader().read(data)[0])
+    atlas = context.vps.atlas(0)
+    phase("encode_full", frames=ENCODE_FRAMES, points=counts,
+          make_s=f"{make_s:.3f}",
+          atlas=f"{atlas.vps_frame_width}x{atlas.vps_frame_height}",
+          first_s=f"{first_s:.3f}",
+          first_s_per_frame=f"{first_s / ENCODE_FRAMES:.3f}",
+          second_s=f"{second_s:.3f}",
+          second_s_per_frame=f"{second_s / ENCODE_FRAMES:.3f}",
+          stages_ms=json.dumps({k: round(v, 1) for k, v
+                                in encoder.timer.stages.items()}),
+          device_busy_s=f"{busy_s:.3f}",
+          busy_share=f"{busy_s / second_s:.4f}",
+          top_device_ms=json.dumps({e.key[:60]: round(
+              e.self_device_time_total * 1e-3, 1) for e in top}),
+          bytes=len(data), runs_equal=first == data,
+          transcode_kernel_launches=launches,
+          recon_points=[ps.point_count for ps in recon],
+          decoded_points=[ps.point_count for ps in clouds],
+          decode_s=f"{decode_s:.3f}",
+          d1_psnr=f"{summary.d1_psnr:.4f}", d2_psnr=f"{summary.d2_psnr:.4f}",
+          y_psnr=f"{summary.color_psnr[0]:.4f}",
+          metrics_s=f"{metrics_s:.3f}", card=repr(card))
+    check(first == data, "encode_full: two encodes on the card differ")
+    check([ps.compute_checksum() for ps in clouds]
+          == [ps.compute_checksum() for ps in recon],
+          "encode_full: the decode differs from the encoder's closed loop")
+    check(all(np.isfinite(x) and 10.0 < x < 100.0
+              for x in (summary.d1_psnr, summary.d2_psnr,
+                        summary.color_psnr[0])),
+          f"encode_full: metrics {summary}")
+    return data
+
+
+def encode_then_transcode_phase(data: bytes, dev, card) -> None:
+    """24. The full-size encoder stream through the MC + intra transcode."""
+    cpu = torch.device("cpu")
+    params = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                  mode="reencode")
+    tc.LAUNCHES = 0
+    out, walls = timed_runs(lambda: transcode_bytes(data, dev, params))
+    launches = tc.LAUNCHES
+    wall = statistics.median(walls)
+    out_cpu, cpu_s = _timed(lambda: transcode_bytes(data, cpu, params))
+    phase("encode_then_transcode", frames=ENCODE_FRAMES, runs=len(walls),
+          wall_s=repr(walls), median_s=f"{wall:.4f}",
+          frames_per_s=f"{ENCODE_FRAMES / wall:.3f}", in_bytes=len(data),
+          out_bytes=len(out), bytes_equal_cpu=out == out_cpu,
+          cpu_s=f"{cpu_s:.3f}", kernel_launches=launches, card=repr(card))
+    check(out == out_cpu, "encode_then_transcode: card and CPU differ")
+    clouds, _, _ = decode_clouds(out, dev)
+    check(len(clouds) == ENCODE_FRAMES
+          and all(ps.point_count > 0 for ps in clouds),
+          "encode_then_transcode: the output does not decode")
+
+
+def encode_app_phase(dev, card) -> None:
+    """25. The encode app on PLYs of the first committed stream's sources:
+    bytes equal to the library's encode on the card."""
+    name = testdata.ENCODER_STREAMS[0]
+    _, sources, record = testdata.load_encoder_stream(name)
+    params = record["encoder_parameters"]
+    want, _, _ = encode_bytes(sources, params, dev)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "encode"
+    work.mkdir(parents=True, exist_ok=True)
+    GroupOfFrames(sources).write(str(work / "src_%04d.ply"), 0)
+    t0 = time.perf_counter()
+    rc, _ = _run_app(encode_app.main, [
+        "--uncompressedDataPath=src_%04d.ply",
+        "--compressedStreamPath=out.bin", f"--device={dev.type}"]
+        + [f"--{k}={v}" for k, v in params.items()], work)
+    wall = time.perf_counter() - t0
+    got = (work / "out.bin").read_bytes() if rc == 0 else b""
+    phase("encode_app", stream=name, rc=rc, wall_s=f"{wall:.3f}",
+          bytes=len(got), bytes_equal_library=got == want, card=repr(card))
+    check(rc == 0 and got == want, f"encode app: rc {rc}, {len(got)} bytes")
+    for p in work.glob("*.ply"):
+        p.unlink()
+
+
+def _phase_seconds(name: str, t0: float) -> float:
+    now = time.perf_counter()
+    phase("phase_seconds", phase=name, seconds=f"{now - t0:.3f}")
+    return now
+
+
+def encoder_phases(dev, card) -> None:
+    """22.-25. The port's encoder, with each phase's seconds."""
+    t0 = time.perf_counter()
+    encode_fixtures_phase(dev, card)
+    t0 = _phase_seconds("encode_fixtures", t0)
+    data = encode_full_phase(dev, card)
+    t0 = _phase_seconds("encode_full", t0)
+    encode_then_transcode_phase(data, dev, card)
+    t0 = _phase_seconds("encode_then_transcode", t0)
+    encode_app_phase(dev, card)
+    _phase_seconds("encode_app", t0)
 
 
 def native_sources_built() -> bool:
@@ -1127,6 +1312,8 @@ def main() -> int:
     decode_app_phase(patch_streams[0], clouds, dev, card)
     # 18.-21. normals, the encoder's streams, the metrics, their apps
     slice_phases(dev, card)
+    # 22.-25. the encoder
+    encoder_phases(dev, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
     k_ms, k_dev, p_ms, bound, by, dense = times["luma"]

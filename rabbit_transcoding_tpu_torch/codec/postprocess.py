@@ -3,8 +3,8 @@ decoder so both reconstruct identical clouds.
 
 Port of ``rabbit_transcoding_tpu/codec/postprocess.py``: the parameters
 come from the geometry- and attribute-smoothing SEIs; the grid filters run
-on ``device`` (``ops/smoothing.py``).  The full-KNN geometry smoothing of
-the encoder's CLI is not ported yet.
+on ``device`` (``ops/smoothing.py``), and so does the KNN of the full-KNN
+geometry smoothing that the encoder's closed loop runs without an SEI.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from ..bitstream.sei import Sei, SeiAttributeSmoothing, SeiGeometrySmoothing
 from ..core.pointset import PointSet
-from ..ops.smoothing import smooth_clouds, smooth_colors_many
+from ..ops.smoothing import knn_smooth, smooth_clouds, smooth_colors_many
 from .reconstruct import first_occurrences
 
 # fixed density-filter strength (both sides must agree; not SEI-coded)
@@ -119,20 +119,35 @@ def apply_geometry_smoothing(
         sei is None and knn is not None and knn.flag and not knn.grid
     )
     if use_knn:
-        raise NotImplementedError(
-            "full-KNN geometry smoothing (knn_smooth) is not ported yet: it "
-            "comes with the encoder (ROADMAP, queue 1 item 8b)")
-    if sei is None or sei.gs_smoothing_method_type != 1:
+        smoothed = []
+        for ps in clouds:
+            part = (
+                ps.partition
+                if ps.partition is not None
+                else np.zeros(ps.point_count, np.int32)
+            )
+            pos, moved = knn_smooth(
+                ps.positions, part,
+                neighbor_count=knn.neighbor_count,
+                radius2=knn.radius2,
+                radius2_boundary=knn.radius2_boundary,
+                threshold=knn.threshold,
+                eligible=None if ps.types is None else ps.types == 1,
+                device=device,
+            )
+            smoothed.append((pos, np.ones(ps.point_count, bool), moved))
+    elif sei is None or sei.gs_smoothing_method_type != 1:
         return clouds
-    grid_size = sei.gs_smoothing_grid_size_minus2 + 2
-    threshold = float(sei.gs_smoothing_threshold)
-    # only patch-boundary points may move (identifyBoundaryPoints); clouds
-    # without type tags keep the move-anything behavior
-    smoothed = smooth_clouds(
-        [(ps.positions, None if ps.types is None else ps.types == 1)
-         for ps in clouds],
-        threshold=threshold, min_neighbors=MIN_NEIGHBORS,
-        grid_size=grid_size, coord_bits=coord_bits, device=device)
+    else:
+        # only patch-boundary points may move (identifyBoundaryPoints);
+        # clouds without type tags keep the move-anything behavior
+        smoothed = smooth_clouds(
+            [(ps.positions, None if ps.types is None else ps.types == 1)
+             for ps in clouds],
+            threshold=float(sei.gs_smoothing_threshold),
+            min_neighbors=MIN_NEIGHBORS,
+            grid_size=sei.gs_smoothing_grid_size_minus2 + 2,
+            coord_bits=coord_bits, device=device)
     out = []
     for ps, (pos, keep, _moved) in zip(clouds, smoothed):
         pre = None

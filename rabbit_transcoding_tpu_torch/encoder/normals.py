@@ -6,9 +6,10 @@ PCCNormalsGenerator.cpp:61-533): per-point normals from the
 eigen-decomposition of the local covariance, then sign orientation.
 
 The KNN graph is built once on the host (the native voxel-grid KNN, or
-scipy's cKDTree — the nanoflann analog); the per-point covariance + eigh and
-the sweeps run batched as torch ops on the device the caller names (the card
-unless it asks for the CPU).  Orientation is the native spanning-tree
+scipy's cKDTree — the nanoflann analog); the per-point covariance and the
+sweeps run batched as torch ops on the device the caller names (the card
+unless it asks for the CPU), the 3x3 eigen-decompositions on the host's
+LAPACK whatever the device (``_eigh``).  Orientation is the native spanning-tree
 propagation on the host; without the native library it falls back to
 viewpoint disambiguation (flip toward the outward ray from the cloud
 centroid) followed by KNN sign-consistency voting sweeps on the device.
@@ -16,10 +17,10 @@ centroid) followed by KNN sign-consistency voting sweeps on the device.
 Floats.  The covariances are reproduced: the reference's compiled CPU code
 adds the k neighbours in index order and accumulates the 3x3 products in one
 fused multiply-add chain over k (``_cov`` does the same, rounding once per
-step).  The eigenvectors are not: ``torch.linalg.eigh`` (LAPACK on the CPU,
-cuSOLVER on the card) and the reference's ``eigh`` agree to float32
-precision where the smallest eigenvalue is simple, and pick different
-vectors where it is repeated; the orientation fixes the sign afterwards.
+step).  The eigenvectors are not: the host's ``torch.linalg.eigh`` and
+the reference's ``eigh`` agree to float32 precision where the smallest
+eigenvalue is simple, and pick different vectors where it is repeated; the
+orientation fixes the sign afterwards.
 """
 
 from __future__ import annotations
@@ -87,20 +88,17 @@ def _cov(centered: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-# matrices per ``torch.linalg.eigh`` call
-_EIGH_BATCH = 16384
-
-
 def _eigh(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``torch.linalg.eigh`` of (N, 3, 3) matrices -> (ascending values,
-    vectors), in batches of ``_EIGH_BATCH``: on the card cuSOLVER's batched
-    solver refuses a large batch (``CUSOLVER_STATUS_INVALID_VALUE`` from
-    32,767 matrices on, 16,384 pass; torch 2.11 with CUDA 12.8)."""
-    if cov.shape[0] <= _EIGH_BATCH:
-        return torch.linalg.eigh(cov)
-    parts = [torch.linalg.eigh(c) for c in cov.split(_EIGH_BATCH)]
-    return (torch.cat([p[0] for p in parts]),
-            torch.cat([p[1] for p in parts]))
+    vectors) on ``cov``'s device, decomposed by the host's LAPACK whatever
+    the device, so that the card's normals are the CPU's bit for bit.  The
+    segmentation's argmax over normal . direction breaks exact ties (a
+    normal with n_x = -n_y) by the vectors' last bits: cuSOLVER's vectors
+    (Jacobi, more accurate) differ from float32 LAPACK's by up to 9.1e-4 rad
+    and moved 3 points of a committed encoder stream's scene to another
+    projection plane, and so changed its bytes."""
+    vals, vecs = torch.linalg.eigh(cov.cpu())
+    return vals.to(cov.device), vecs.to(cov.device)
 
 
 def _pca_normals(points: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Geometry and colour smoothing (decoder post-processing), as torch ops.
 
-Port of the grid half of ``rabbit_transcoding_tpu/ops/smoothing.py``:
-``grid_smooth``, ``color_grid_smooth``, ``color_grid_smooth_gated`` and the
-host wrappers ``smooth_cloud`` / ``smooth_colors``.  One scatter-add builds
+Port of ``rabbit_transcoding_tpu/ops/smoothing.py``: the grid filters
+``grid_smooth``, ``color_grid_smooth``, ``color_grid_smooth_gated`` with the
+host wrappers ``smooth_cloud`` / ``smooth_colors``, the full-KNN geometry
+smoothing ``knn_smooth`` (its KNN on the device, ``ops/knn.py``) and the
+encoder's colour pre-smoothing ``presmooth_colors`` (host numpy over a
+cKDTree, as in the reference).  One scatter-add builds
 a per-cell accumulation grid for the whole cloud; each point gathers the
 stats of its 27-cell neighbourhood in the fixed order of ``_OFFSETS``.
 
@@ -399,3 +402,125 @@ def smooth_cloud(
     Returns (positions, keep mask over input order, moved count)."""
     return smooth_clouds([(positions, eligible)], threshold, min_neighbors,
                          grid_size, coord_bits, device)[0]
+
+
+def knn_smooth(
+    positions: np.ndarray,
+    partition: np.ndarray,
+    neighbor_count: int = 64,
+    radius2: float = 64.0,
+    radius2_boundary: float = 64.0,
+    threshold: float = 64.0,
+    eligible: np.ndarray | None = None,
+    device: torch.device | str = "cuda",
+) -> tuple[np.ndarray, int]:
+    """Full-KNN geometry smoothing (PCCCodec::smoothPointCloud, the
+    gridSmoothing=0 path; knobs neighborCountSmoothing / radius2Smoothing /
+    radius2BoundaryDetection / thresholdSmoothing).
+
+    Per point: neighbours within sqrt(radius2) (at most neighbor_count); if
+    any neighbour within sqrt(radius2_boundary) belongs to a DIFFERENT patch
+    and the rounded-centroid distance reaches ``threshold``, the point snaps
+    to the rounded neighbourhood centroid (the reference's integer
+    rounding).  The KNN runs on ``device``; the rest is host integer
+    arithmetic."""
+    from .knn import grid_knn
+
+    n = len(positions)
+    if n == 0:
+        return positions, 0
+    k = max(1, neighbor_count)
+    if k > 64:
+        import sys
+
+        print(
+            f"warning: neighborCountSmoothing={k} exceeds the device KNN "
+            "kernel's 64-neighbor tile; smoothing with 64",
+            file=sys.stderr,
+        )
+        k = 64
+    pos = positions.astype(np.int32)
+    pos_dev = torch.from_numpy(pos).to(resolve(device))
+    d2, idx = grid_knn(pos_dev, pos_dev, k=min(k, 64),
+                       cap=max(32, min(k, 64)))
+    d2 = d2.cpu().numpy()
+    idx = idx.cpu().numpy()
+    inr = (d2 <= radius2) & (idx >= 0)
+    safe = np.clip(idx, 0, n - 1)
+    cnt = inr.sum(axis=1)
+    centroid = (pos[safe] * inr[..., None]).sum(axis=1)
+    other = (
+        inr & (d2 <= radius2_boundary)
+        & (partition[safe] != partition[:, None])
+    ).any(axis=1)
+    nc = np.maximum(cnt, 1)
+    # the reference's integer centroid rounding
+    cent_i = ((centroid + (nc // 2)[:, None]) // nc[:, None]).astype(np.int64)
+    # reference: |sum(neighbors) - n*point|^2 / n  ==  n * |mean - point|^2
+    d2c = np.floor(
+        ((centroid - pos * nc[:, None]).astype(np.float64) ** 2).sum(axis=1)
+        + nc / 2.0
+    ) / nc
+    move = other & (d2c >= threshold)
+    if eligible is not None:
+        move &= eligible
+    out = pos.copy()
+    out[move] = cent_i[move].astype(np.int32)
+    return out, int(move.sum())
+
+
+def presmooth_colors(
+    positions: np.ndarray,
+    colors: np.ndarray,
+    eligible: np.ndarray | None = None,
+    radius2: float = 64.0,
+    max_neighbors: int = 64,
+    threshold: float = 10.0,
+    entropy_threshold: float = 4.5,
+) -> tuple[np.ndarray, int]:
+    """Encoder-side colour pre-smoothing (presmoothPointCloudColor: radius
+    KNN per boundary point; the colour snaps to the neighbourhood centroid
+    only where the local luma ENTROPY is low, flat regions, and the L1
+    colour distance to the centroid reaches thresholdColorPreSmoothing).
+    Invisible to the decoder."""
+    from scipy.spatial import cKDTree
+
+    n = len(positions)
+    if n == 0:
+        return colors, 0
+    k = min(max(1, max_neighbors), n)
+    tree = cKDTree(positions)
+    cand = np.arange(n) if eligible is None else np.nonzero(eligible)[0]
+    if len(cand) == 0:
+        return colors, 0
+    d, idx = tree.query(positions[cand], k=k)
+    if k == 1:
+        d = d[:, None]
+        idx = idx[:, None]
+    inr = (d * d) <= radius2
+    nc = np.maximum(inr.sum(axis=1), 1)
+    cols = colors.astype(np.int64)
+    centroid = (cols[idx] * inr[..., None]).sum(axis=1)
+    centroid = (centroid + (nc // 2)[:, None]) // nc[:, None]
+    # local luma Shannon entropy over the in-radius neighbors
+    lum = (
+        0.2126 * cols[idx][..., 0] + 0.7152 * cols[idx][..., 1]
+        + 0.0722 * cols[idx][..., 2]
+    ).astype(np.int32)
+    # per-row Shannon entropy: in-radius luma values scatter-added into a
+    # (rows, 256) histogram
+    rows = len(cand)
+    hist = np.zeros((rows, 256), np.int32)
+    rr = np.repeat(np.arange(rows), k)
+    lv = np.clip(lum.reshape(-1), 0, 255)
+    sel = inr.reshape(-1)
+    np.add.at(hist, (rr[sel], lv[sel]), 1)
+    tot = np.maximum(hist.sum(axis=1, keepdims=True), 1)
+    pmat = hist / tot
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ent = -np.where(pmat > 0, pmat * np.log2(pmat), 0.0).sum(axis=1)
+    dist1 = np.abs(centroid - cols[cand]).sum(axis=1)
+    move = (dist1 >= threshold) & (ent < entropy_threshold)
+    out = colors.copy()
+    out[cand[move]] = np.clip(centroid[move], 0, 255).astype(colors.dtype)
+    return out, int(move.sum())

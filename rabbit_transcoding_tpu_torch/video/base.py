@@ -3,7 +3,9 @@
 
 Pipelines request a codec by ``CodecId`` and a ``torch.device``: the card
 unless the caller asks for the CPU (no card raises).  External
-app codecs (HM, JM, SHM, VTM, ffmpeg) are not ported yet.
+app codecs (HM, JM, SHM, VTM, ffmpeg) are not ported yet; the encoder's
+per-component codec selection (``component_codec_id``,
+``component_encoder``) raises on one.
 """
 
 from __future__ import annotations
@@ -44,6 +46,74 @@ def _check_rbv(codec_id: CodecId) -> None:
             f"codec {codec_id.name} is not ported yet (ROADMAP, queue 1 "
             f"item 9b: foreign route)"
         )
+
+
+# the video role -> the component whose codec option selects its encoder
+_ROLE_COMP = {
+    "occupancy": "Occupancy",
+    "geometry": "Geometry",
+    "geometryMP": "Geometry",   # raw-points aux video rides the geometry codec
+    "geometry0": "Geometry",    # per-map sub-streams (multipleStreams)
+    "geometry1": "Geometry",
+    "attribute": "Attribute",
+    "attributeMP": "Attribute",
+    "attribute0": "Attribute",
+    "attribute1": "Attribute",
+}
+
+# PCCBitstreamCommon.h:169-173: the codec group of all-RBV streams, and the
+# 4CC its Component Codec Mapping SEI names
+CODEC_GROUP_MP4RA = 127
+RBV_4CC = "rbv1"
+
+
+@dataclasses.dataclass
+class CodecSignalling:
+    """What a stream's VPS/SEI say about its video codecs."""
+
+    profile_codec_group_idc: int
+    # per-component coded codec id (the oi/gi/ai *_codec_id value)
+    component_ids: dict  # {"occupancy"|"geometry"|"attribute": int}
+    # (ccm_codec_id, 4cc) entries of the Component Codec Mapping SEI
+    ccm_entries: list
+
+
+def rbv_signalling() -> CodecSignalling:
+    """The signalling of a stream whose components are all RBV: the MP4RA
+    group and one ``rbv1`` mapping entry (the reference's
+    ``codec_group.signalling`` for that case)."""
+    return CodecSignalling(
+        CODEC_GROUP_MP4RA,
+        {k: 0 for k in ("occupancy", "geometry", "attribute")},
+        [(0, RBV_4CC)],
+    )
+
+
+def component_codec_id(params, comp: str) -> CodecId:
+    """The codec selected for a component ('Occupancy'/'Geometry'/
+    'Attribute') by the videoEncoder<Comp>CodecId option; RBV when unset.
+    An external codec raises: it is not ported yet."""
+    name = getattr(params, f"videoEncoder{comp}CodecId", "RBV") or "RBV"
+    try:
+        codec_id = CodecId[name]
+    except KeyError:
+        raise ValueError(
+            f"videoEncoder{comp}CodecId={name!r} is not a codec id (expected "
+            f"RBV / HM_APP / JM_APP / SHM_APP / VTM_APP / FFMPEG_APP)"
+        ) from None
+    _check_rbv(codec_id)
+    return codec_id
+
+
+def component_encoder(params, role: str, lossless: bool = False,
+                      device: torch.device | str = "cuda") -> "VideoEncoder":
+    """An RBV encoder on ``device`` for one video role ('occupancy',
+    'geometry', 'geometryMP', 'attribute', 'attributeMP', ...), lossless
+    when asked or when RBV_LOSSLESS is selected for the component."""
+    codec_id = component_codec_id(params, _ROLE_COMP[role])
+    force = lossless or codec_id == CodecId.RBV_LOSSLESS
+    return VideoEncoder.create(
+        CodecId.RBV_LOSSLESS if force else CodecId.RBV, device)
 
 
 class VideoEncoder:

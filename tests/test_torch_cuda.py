@@ -533,11 +533,9 @@ def test_decoder_on_the_card_equals_the_cpu(cuda, kw):
                                      ("make_scene_frame", 40_000),
                                      ("make_dense_frame", 200_000)])
 def test_normals_on_the_card_against_the_cpu(cuda, maker, n):
-    """Covariances equal bit for bit (the same fused multiply-add chain);
-    the eigenvectors come from cuSOLVER on the card and LAPACK on the CPU:
-    oriented unit normals within 1e-3 rad at all but 1e-4 of the points
-    (the measured shares are printed; ROADMAP queue 3 item g.9 records
-    them)."""
+    """Covariances equal bit for bit (the same fused multiply-add chain),
+    and the eigenvectors too: the host's LAPACK decomposes on every device
+    (``normals._eigh``), so the oriented unit normals are equal."""
     from rabbit_transcoding_tpu_torch import testdata
     from rabbit_transcoding_tpu_torch.encoder import normals as nm
 
@@ -554,6 +552,7 @@ def test_normals_on_the_card_against_the_cpu(cuda, maker, n):
     m = testdata.normals_mismatch(got, want)
     print(maker, len(pts), m)
     assert m["share_beyond_1e-3"] <= 1e-4
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
 
 
@@ -613,3 +612,109 @@ def test_metrics_on_the_card_against_the_cpu_and_the_reference(cuda, name):
                 assert abs(a - b) <= 1e-5 and abs(a - c) <= 1e-5, f.name
         else:
             assert a == b == c, f.name
+
+
+# --- the encoder's device ops: the card against device="cpu" --------
+def test_encoder_colour_ops_on_the_card_equal_the_cpu(cuda):
+    from rabbit_transcoding_tpu_torch.ops import color
+
+    rng = np.random.default_rng(5)
+    rgb = torch.from_numpy(
+        rng.integers(0, 256, (2, 256, 320, 3)).astype(np.uint8))
+    pid = torch.from_numpy(np.repeat(np.repeat(
+        rng.integers(-1, 6, (2, 16, 20)), 16, axis=1), 16, axis=2
+    ).astype(np.int32))
+    for filt in (0, 1, 2, 3, "box"):
+        _same(color.rgb8_to_yuv420(rgb.to(cuda), filt),
+              color.rgb8_to_yuv420(rgb, filt))
+        _same(color.rgb8_to_yuv420_patch_aware(rgb.to(cuda), pid.to(cuda),
+                                               filt),
+              color.rgb8_to_yuv420_patch_aware(rgb, pid, filt))
+
+
+def test_fills_on_the_card_equal_the_cpu(cuda):
+    from rabbit_transcoding_tpu_torch.ops import dilate
+
+    rng = np.random.default_rng(6)
+    planes = (rng.random((6, 200, 300)) * 1023).astype(np.float32)
+    occ = (rng.random((6, 200, 300)) < 0.3).astype(np.uint8)
+    for mode in (0, 1, 2, 3):
+        want = dilate.background_fill(planes, occ, mode, "cpu")
+        got = dilate.background_fill(planes, occ, mode, cuda)
+        assert np.array_equal(want.view(np.int32), got.view(np.int32)), mode
+
+
+@pytest.mark.parametrize("k", [1, 16, 64])
+def test_grid_knn_on_the_card_equals_the_cpu(cuda, k):
+    from rabbit_transcoding_tpu_torch.ops import knn
+
+    p = _smoothing_cloud(200_000, 250)[0]
+    q = p[::2] + 1
+    _same(knn.grid_knn(q.to(cuda), p.to(cuda), k=k, cap=max(32, k)),
+          knn.grid_knn(q, p, k=k, cap=max(32, k)))
+
+
+def test_knn_smooth_and_device_recolour_on_the_card_equal_the_cpu(cuda):
+    from rabbit_transcoding_tpu_torch.ops import recolor, smoothing
+
+    p, col, part, elig = (t.numpy() for t in _smoothing_cloud(60_000, 120))
+    want = smoothing.knn_smooth(p, part, eligible=elig, threshold=4.0,
+                                device="cpu")
+    got = smoothing.knn_smooth(p, part, eligible=elig, threshold=4.0,
+                               device=cuda)
+    assert want[1] == got[1] > 0 and np.array_equal(want[0], got[0])
+    dst = p[::3] + np.array([0, 1, 0], np.int32)
+    for k in (1, 4):
+        assert np.array_equal(
+            recolor.transfer_colors_device(p, col, dst, k=k, device="cpu"),
+            recolor.transfer_colors_device(p, col, dst, k=k, device=cuda))
+
+
+def test_segmentation_ops_on_the_card_equal_the_cpu(cuda):
+    from rabbit_transcoding_tpu_torch.encoder import segment as sg
+
+    rng = np.random.default_rng(7)
+    n, n_vox = 100_000, 4_000
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm = torch.from_numpy(nrm)
+    for mode in range(5):
+        w = torch.from_numpy(sg._direction_weights(mode, (0.6, 0.8, 1.0)))
+        _same(sg._ppi_scores(nrm.to(cuda), w.to(cuda), mode),
+              sg._ppi_scores(nrm, w, mode))
+    scores = sg._ppi_scores(nrm, w, 4)
+    ppi = scores.argmax(dim=1).to(torch.int32)
+    idx = torch.from_numpy(rng.integers(0, n, (n, 48)))
+    lam = float(np.float32(3.0 / 7))
+    _same(sg._refine_all(ppi.to(cuda), scores.to(cuda), idx.to(cuda), lam,
+                         10),
+          sg._refine_all(ppi, scores, idx, lam, 10))
+    inv = torch.from_numpy(rng.integers(0, n_vox, n))
+    adj = torch.from_numpy(rng.integers(0, n_vox, (n_vox, 64)))
+    ok = torch.from_numpy(rng.random((n_vox, 64)) < 0.6)
+    wt = torch.from_numpy(
+        (3.0 / rng.integers(1, 200, n_vox)).astype(np.float32))
+    args = (inv, adj, ok, wt)
+    _same(sg._grid_refine_all(ppi.to(cuda), scores.to(cuda),
+                              *(a.to(cuda) for a in args), 10, n_vox),
+          sg._grid_refine_all(ppi, scores, *args, 10, n_vox))
+
+
+@pytest.mark.parametrize("name", ["sphere_default",
+                                  "scene_lossy_occupancy_pbf",
+                                  "sphere_eom_lossless"])
+def test_encoder_on_the_card_writes_the_committed_stream(cuda, name):
+    """The whole encoder on the card, its normals included: the bytes of
+    the committed stream (which the CPU writes too,
+    ``test_torch_encoder.py``)."""
+    from rabbit_transcoding_tpu_torch.bitstream import V3CWriter
+    from rabbit_transcoding_tpu_torch.core.gof import GroupOfFrames
+    from rabbit_transcoding_tpu_torch.encoder.encoder import Encoder
+    from rabbit_transcoding_tpu_torch.encoder.params import EncoderParameters
+    from rabbit_transcoding_tpu_torch.testdata import load_encoder_stream
+
+    data, sources, record = load_encoder_stream(name)
+    context, _ = Encoder(EncoderParameters(**record["encoder_parameters"]),
+                         cuda).encode(GroupOfFrames(sources))
+    writer = V3CWriter()
+    assert writer.write(writer.encode(context)) == data

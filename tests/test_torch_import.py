@@ -3,6 +3,7 @@ and loads no CUDA library when imported (the machine with the GPU has no
 JAX)."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -21,9 +22,12 @@ print("ok")
 
 
 def _run(imports: str) -> None:
+    # one OpenMP thread: the tier-1 run's other test processes share the
+    # host's cores
     proc = subprocess.run(
         [sys.executable, "-c", _CHECK.format(imports=imports)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     # the last line: an app run by the check prints its own lines first
     assert proc.returncode == 0 and proc.stdout.split()[-1:] == ["ok"], (
@@ -146,6 +150,37 @@ def test_cpu_metrics_leave_the_reference_and_jax_unimported(tmp_path):
     )
 
 
+def test_cpu_encode_leaves_the_reference_and_jax_unimported(tmp_path):
+    # the encoder on a committed source, then the encode app on its PLYs
+    _run(
+        "import os\n"
+        "from rabbit_transcoding_tpu_torch.apps import encode\n"
+        "from rabbit_transcoding_tpu_torch.bitstream import V3CWriter\n"
+        "from rabbit_transcoding_tpu_torch.core.gof import GroupOfFrames\n"
+        "from rabbit_transcoding_tpu_torch.encoder.encoder import Encoder\n"
+        "from rabbit_transcoding_tpu_torch.encoder.params import (\n"
+        "    EncoderParameters)\n"
+        "from rabbit_transcoding_tpu_torch.testdata import (\n"
+        "    load_encoder_stream)\n"
+        "data, sources, record = load_encoder_stream(\n"
+        "    'sphere_eom_lossless')\n"
+        "params = EncoderParameters(**record['encoder_parameters'])\n"
+        "context, _ = Encoder(params, 'cpu').encode(GroupOfFrames(sources))\n"
+        "writer = V3CWriter()\n"
+        "assert writer.write(writer.encode(context)) == data\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "GroupOfFrames(sources).write('s_%04d.ply', 0)\n"
+        "assert encode.main(['--uncompressedDataPath=s_%04d.ply',\n"
+        "                    '--frameCount=1', '--minimumImageWidth=256',\n"
+        "                    '--compressedStreamPath=o.bin',\n"
+        "                    '--device=cpu']) == 0\n"
+        "assert os.path.getsize('o.bin') > 1000\n"
+        "ref = [m for m in sys.modules if m == 'rabbit_transcoding_tpu'\n"
+        "       or m.startswith('rabbit_transcoding_tpu.')]\n"
+        "assert not ref, ref\n"
+    )
+
+
 def _imported_modules(path: Path) -> set[str]:
     tree = ast.parse(path.read_text(), str(path))
     names = set()
@@ -163,6 +198,7 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert len(files) > 55
     assert ROOT / "rabbit_transcoding_tpu_torch/metrics/metrics.py" in files
     assert ROOT / "rabbit_transcoding_tpu_torch/apps/decode.py" in files
+    assert ROOT / "rabbit_transcoding_tpu_torch/encoder/encoder.py" in files
     bad = {
         str(f.relative_to(ROOT)): sorted(
             m for m in _imported_modules(f)
