@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode,
 the V-PCC decode, the normals and quality metrics on streams that the
-V-PCC encoder wrote, and the port's V-PCC encoder.
+V-PCC encoder wrote, the port's V-PCC encoder, and the foreign-codec route
+(HEVC sub-streams).
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -109,7 +110,29 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     ``reencode`` mode at geometry QP 32 / attribute QP 42 on the card,
     frames/s, bytes equal to a ``device=cpu`` transcode;
 25. ``encode_app``: ``apps/encode.py --device=cuda`` on the first committed
-    stream's sources written as PLYs: bytes equal to the library's.
+    stream's sources written as PLYs: bytes equal to the library's;
+26. ``foreign_stream``: phase 13's patch stream at full width, 2 frames of
+    the 32-frame GOF (the HEVC subsets code on the host), built on the card
+    and re-coded as HEVC by the in-tree subsets: occupancy as IPCM, geometry
+    and attribute as the all-intra subset at QP 16 / 22;
+27. ``foreign_transcode``: that stream through ``Transcoder(device=cuda)``
+    with no external binary (the route resolves the in-tree subsets), to
+    geometry QP 32 / attribute QP 42 and twice the occupancy precision:
+    seconds per frame, stages, bytes per sub-stream, each output decoding,
+    PSNR against the input planes, the occupancy equal to a CPU max-pool;
+    held byte for byte against ``device=cpu`` at 256x256;
+28. ``foreign_decode``: the same atlas with stand-in HEVC sub-streams
+    (``mock_hevc`` behind HM's command line), decoded by
+    ``Decoder(device=cuda)`` through the stand-in decoder: frames/s, points
+    per frame, equal run to run and to ``device=cpu`` (256x256; full size
+    when the small run predicts under 30 s);
+29. ``foreign_encode``: the first committed stream's sources encoded with
+    HM_APP for every component through the stand-in, on the card and the
+    CPU (equal bytes); the stream decoded on the card (the closed loop's
+    checksums) and transcoded through the stand-in (card = CPU);
+30. ``foreign_apps``: ``apps/parser.py`` on phase 26's stream prints its
+    HEVC probe lines; ``apps/transcode.py --device=cuda`` on it, run in a
+    process of its own beside phase 27, writes phase 27's bytes.
 
 The kernel table as JSON and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
@@ -139,12 +162,16 @@ from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.apps import decode as decode_app
 from rabbit_transcoding_tpu_torch.apps import encode as encode_app
 from rabbit_transcoding_tpu_torch.apps import metrics as metrics_app
+from rabbit_transcoding_tpu_torch.apps import parser as parser_app
 from rabbit_transcoding_tpu_torch.apps import stream as stream_app
+from rabbit_transcoding_tpu_torch.apps import transcode as transcode_app
 from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import (
     VideoBitstream,
 )
 from rabbit_transcoding_tpu_torch.core.gof import GroupOfFrames
-from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
+from rabbit_transcoding_tpu_torch.decoder.decoder import (
+    Decoder, DecoderParameters,
+)
 from rabbit_transcoding_tpu_torch.encoder import normals as nm
 from rabbit_transcoding_tpu_torch.encoder.encoder import Encoder
 from rabbit_transcoding_tpu_torch.encoder.params import EncoderParameters
@@ -159,7 +186,7 @@ from rabbit_transcoding_tpu_torch.transcoder import (
     MultiStreamTranscoder, Transcoder, TranscoderParameters, V3CReader,
     V3CWriter, VideoType,
 )
-from rabbit_transcoding_tpu_torch.video import rbv
+from rabbit_transcoding_tpu_torch.video import hevc_intra, hevc_ipcm, rbv
 
 # share of differing coefficients and largest |difference| the GPU output
 # may show against the CPU's (a float rounding-order flip at a .5 boundary
@@ -1089,6 +1116,313 @@ def encoder_phases(dev, card) -> None:
     _phase_seconds("encode_app", t0)
 
 
+# the foreign route's stream: the patch stream's depth cut to 2 frames of a
+# 32-frame GOF (the HEVC subsets code on the host, ~7 us a sample); its
+# transcode's occupancy precision, twice the stream's
+FOREIGN_FRAMES = 2
+FOREIGN_PRECISION = 2 * testdata.OCC_PRECISION
+FOREIGN_SMALL = (FOREIGN_FRAMES, 256, 256)
+# a full-size CPU decode of the stand-in stream is run when the small one
+# predicts less than this
+FOREIGN_CPU_FULL_LIMIT_S = 30.0
+
+
+def _foreign_params(**kw) -> TranscoderParameters:
+    return TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                occupancyPrecision=FOREIGN_PRECISION, **kw)
+
+
+def _videos(data: bytes) -> dict:
+    """{video type name: payload} of the first GOF of a V3C stream."""
+    reader = V3CReader()
+    atlas = reader.decode(reader.read(data)[0]).atlas(0)
+    return {vt.name: vb.data for vt, vb in atlas.video_bitstreams.items()}
+
+
+def _psnr(a: np.ndarray, b: np.ndarray, bitdepth: int) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    peak = float((1 << bitdepth) - 1)
+    return float("inf") if mse == 0 else 10.0 * np.log10(peak * peak / mse)
+
+
+def _subset_video(payload: bytes):
+    """The in-tree subsets' decode of a payload (IPCM or all-intra)."""
+    return (hevc_ipcm.decode(payload) if hevc_ipcm.is_ipcm_subset(payload)
+            else hevc_intra.decode(payload))
+
+
+def foreign_stream_phase(dev, card) -> tuple[bytes, bytes, dict]:
+    """26. The patch stream at full width, 2 frames, built on the card;
+    its videos decoded on the card and re-encoded by the in-tree HEVC
+    subsets: occupancy as IPCM (lossless, 8-bit 4:0:0), geometry as the
+    all-intra subset at QP 16 (10-bit 4:0:0), attribute at QP 22 (8-bit
+    4:2:0) -> (RBV stream, foreign stream, {video: decoded input video})."""
+    t0 = time.perf_counter()
+    data = make_stream(FOREIGN_FRAMES, WIDTH, HEIGHT, device=dev,
+                       patches=True, smoothing=True)
+    rbv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    foreign = testdata.to_foreign(data, dev, workers=3)
+    hevc_s = time.perf_counter() - t0
+    payloads = _videos(foreign)
+    t0 = time.perf_counter()
+    planes = {name: _subset_video(p) for name, p in payloads.items()}
+    decode_s = time.perf_counter() - t0
+    subsets = {name: "ipcm" if hevc_ipcm.is_ipcm_subset(p) else
+               "intra" if hevc_intra.is_intra_subset(p) else "none"
+               for name, p in payloads.items()}
+    phase("foreign_stream", frames=FOREIGN_FRAMES, size=f"{WIDTH}x{HEIGHT}",
+          bytes=len(foreign), rbv_bytes=len(data),
+          video_bytes={k: len(v) for k, v in payloads.items()},
+          subsets=subsets, rbv_build_s=f"{rbv_s:.3f}",
+          hevc_encode_s=f"{hevc_s:.3f}", hevc_decode_s=f"{decode_s:.3f}",
+          card=repr(card))
+    check(subsets == {"OCCUPANCY": "ipcm", "GEOMETRY": "intra",
+                      "ATTRIBUTE": "intra"},
+          f"foreign stream: subsets {subsets}")
+    want = {"OCCUPANCY": (WIDTH // testdata.OCC_PRECISION, 8, "YUV400"),
+            "GEOMETRY": (WIDTH, 10, "YUV400"),
+            "ATTRIBUTE": (WIDTH, 8, "YUV420")}
+    for name, video in planes.items():
+        check((video.width, video.bitdepth, video.format.name)
+              == want[name] and video.frame_count == FOREIGN_FRAMES,
+              f"foreign stream: {name} is {video.width} wide, "
+              f"{video.bitdepth}-bit {video.format.name}")
+    return data, foreign, planes
+
+
+def foreign_transcode_phase(foreign: bytes, planes: dict, dev,
+                            card) -> bytes:
+    """27. The foreign stream through ``Transcoder(device=cuda)`` with no
+    external binary: the route resolves the in-tree subsets.  One timed
+    run; geometry and attribute come out smaller, decode, and have their
+    PSNR against the input planes printed; the occupancy equals a CPU
+    max-pool of the input's.  Held byte for byte against ``device=cpu``
+    at 256x256, 2 frames -> the output stream."""
+    from rabbit_transcoding_tpu_torch.transcoder import foreign as route
+
+    params = _foreign_params()
+    reader = V3CReader()
+    context = reader.decode(reader.read(foreign)[0])
+    atlas = context.atlas(0)
+    codecs = {vt.name: type(route.resolve(params, vt, context, atlas,
+                                          vb.data)).__name__
+              for vt, vb in atlas.video_bitstreams.items()}
+    check(codecs == {"OCCUPANCY": "IpcmCodec", "GEOMETRY": "HevcIntraCodec",
+                     "ATTRIBUTE": "HevcIntraCodec"},
+          f"foreign transcode: resolved {codecs} (an external binary on "
+          f"PATH or in RABBIT_*_APP_* would take the route)")
+    tc.LAUNCHES = 0
+    transcoder = Transcoder(params, dev)
+    t0 = time.perf_counter()
+    transcoder.transcode(context)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = write_context(context)
+    before, after = _videos(foreign), _videos(out)
+    psnr = {}
+    for name in ("GEOMETRY", "ATTRIBUTE"):
+        check(len(after[name]) < len(before[name]),
+              f"foreign transcode: {name} did not shrink")
+        got, want = hevc_intra.decode(after[name]), planes[name]
+        check(got.frame_count == FOREIGN_FRAMES and got.width == WIDTH,
+              f"foreign transcode: {name} decodes to {got.width} wide")
+        psnr[name] = [round(float(_psnr(a, b, want.bitdepth)), 4)
+                      for a, b in zip(got.planes, want.planes)]
+        check(all(a.shape == b.shape for a, b in zip(got.planes,
+                                                       want.planes)),
+              f"foreign transcode: {name} planes change shape")
+    occ_in = planes["OCCUPANCY"].planes[0]
+    f = FOREIGN_PRECISION // testdata.OCC_PRECISION
+    n, h, w = occ_in.shape
+    pooled = occ_in.reshape(n, h // f, f, w // f, f).max(axis=(2, 4))
+    occ_out = hevc_ipcm.decode(after["OCCUPANCY"]).planes[0]
+    t0 = time.perf_counter()
+    small = testdata.to_foreign(make_stream(*FOREIGN_SMALL, patches=True,
+                                            smoothing=True))
+    small_card = transcode_bytes(small, dev, params)
+    small_cpu = transcode_bytes(small, torch.device("cpu"), params)
+    small_s = time.perf_counter() - t0
+    phase("foreign_transcode", wall_s=f"{wall:.4f}",
+          seconds_per_frame=f"{wall / FOREIGN_FRAMES:.4f}",
+          stages={k: round(v, 3) for k, v in transcoder.timer.stages.items()},
+          bytes_in={k: len(v) for k, v in before.items()},
+          bytes_out={k: len(v) for k, v in after.items()},
+          psnr_vs_input_db=psnr, occupancy_equals_cpu_maxpool=bool(
+              np.array_equal(occ_out, pooled)),
+          small_bytes_equal_cpu=small_card == small_cpu,
+          small_s=f"{small_s:.3f}", kernel_launches=tc.LAUNCHES,
+          card=repr(card))
+    check(np.array_equal(occ_out, pooled),
+          "foreign transcode: occupancy differs from the CPU max-pool")
+    check(all(x > 20.0 for v in psnr.values() for x in v),
+          f"foreign transcode: PSNR {psnr}")
+    check(small_card == small_cpu,
+          "foreign transcode: card and CPU bytes differ at 256x256")
+    return out
+
+
+def foreign_decode_phase(rbv_data: bytes, work: Path, dev, card) -> tuple:
+    """28. The same atlas with stand-in HEVC sub-streams (``mock_hevc``),
+    decoded by ``Decoder(device=cuda)`` with the videoDecoder*Path
+    parameters set to the stand-in wrappers: frames/s and points per
+    frame; clouds equal a ``device=cpu`` decode at 256x256 and, when that
+    predicts under ``FOREIGN_CPU_FULL_LIMIT_S``, at full size -> the
+    wrappers (encoder, decoder)."""
+    enc, dec = testdata.write_codec_wrappers(work)
+    paths = {f"videoDecoder{c}Path": dec
+             for c in ("Occupancy", "Geometry", "Attribute")}
+
+    def decode(data, device):
+        reader = V3CReader()
+        t0 = time.perf_counter()
+        clouds = Decoder(DecoderParameters(**paths), device).decode(
+            reader.decode(reader.read(data)[0]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return clouds, time.perf_counter() - t0
+
+    mock = testdata.to_foreign(rbv_data, dev, codec="mock")
+    clouds, wall = decode(mock, dev)
+    again, _ = decode(mock, dev)
+    small = testdata.to_foreign(make_stream(*FOREIGN_SMALL, patches=True,
+                                            smoothing=True), codec="mock")
+    small_card, _ = decode(small, dev)
+    small_cpu, small_s = decode(small, torch.device("cpu"))
+    predicted = small_s * (WIDTH * HEIGHT) / (FOREIGN_SMALL[1]
+                                              * FOREIGN_SMALL[2])
+    full_equal = None
+    if predicted < FOREIGN_CPU_FULL_LIMIT_S:
+        full_cpu, _ = decode(mock, torch.device("cpu"))
+        full_equal = clouds_equal(clouds, full_cpu)
+    points = [ps.point_count for ps in clouds]
+    phase("foreign_decode", frames=len(clouds), wall_s=f"{wall:.4f}",
+          frames_per_s=f"{len(clouds) / wall:.3f}", points=points,
+          bytes=len(mock), equal_run_to_run=clouds_equal(clouds, again),
+          small_equal_cpu=clouds_equal(small_card, small_cpu),
+          small_cpu_s=f"{small_s:.3f}", predicted_full_cpu_s=f"{predicted:.1f}",
+          full_equal_cpu=full_equal, card=repr(card))
+    check(len(clouds) == FOREIGN_FRAMES and min(points) > WIDTH * HEIGHT // 16,
+          f"foreign decode: points {points}")
+    check(clouds_equal(clouds, again), "foreign decode: runs differ")
+    check(clouds_equal(small_card, small_cpu),
+          "foreign decode: card and CPU clouds differ at 256x256")
+    check(full_equal in (None, True),
+          "foreign decode: card and CPU clouds differ at full size")
+    return enc, dec
+
+
+def foreign_encode_phase(enc: str, dec: str, dev, card) -> None:
+    """29. The first committed encoder stream's sources encoded with
+    ``videoEncoder{Occupancy,Geometry,Attribute}CodecId=HM_APP`` through the
+    stand-in, on the card and on the CPU: equal bytes.  Its stream decoded
+    through the stand-in decoder on the card (the closed loop's checksums),
+    then through the ``ForeignCodec`` transcode with the stand-in, on the
+    card and on the CPU: equal bytes."""
+    comps = ("Occupancy", "Geometry", "Attribute")
+    name = testdata.ENCODER_STREAMS[0]
+    _, sources, record = testdata.load_encoder_stream(name)
+    params = dict(record["encoder_parameters"])
+    for c in comps:
+        params[f"videoEncoder{c}CodecId"] = "HM_APP"
+        params[f"videoEncoder{c}Path"] = enc
+    (got, _, recon), card_s = _timed(lambda: encode_bytes(sources, params,
+                                                          dev))
+    (want, _, _), cpu_s = _timed(lambda: encode_bytes(
+        sources, params, torch.device("cpu")))
+    reader = V3CReader()
+    clouds = Decoder(DecoderParameters(**{
+        f"videoDecoder{c}Path": dec for c in comps}), dev).decode(
+            reader.decode(reader.read(got)[0]))
+    sums_equal = ([ps.compute_checksum() for ps in clouds]
+                  == [ps.compute_checksum() for ps in recon])
+    paths = {}
+    for c in comps:
+        paths[f"videoEncoder{c}Path"] = enc
+        paths[f"videoDecoder{c}Path"] = dec
+    tparams = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                   **paths)
+    (out, t_s) = _timed(lambda: transcode_bytes(got, dev, tparams))
+    out_cpu = transcode_bytes(got, torch.device("cpu"), tparams)
+    videos = _videos(got)
+    phase("foreign_encode", stream=name, bytes=len(got),
+          equal_to_cpu=got == want, annexb={
+              k: v[:4] == b"\x00\x00\x00\x01" for k, v in videos.items()},
+          decode_checksums_equal_closed_loop=sums_equal,
+          transcode_bytes=len(out), transcode_equal_cpu=out == out_cpu,
+          encode_s=f"{card_s:.3f}", cpu_encode_s=f"{cpu_s:.3f}",
+          transcode_s=f"{t_s:.3f}", card=repr(card))
+    check(got == want, "foreign encode: card and CPU bytes differ")
+    check(all(v[:4] == b"\x00\x00\x00\x01" for v in videos.values()),
+          "foreign encode: a sub-stream is not Annex-B")
+    check(sums_equal, "foreign encode: the decode differs from the "
+                      "closed loop")
+    check(out == out_cpu and out != got,
+          "foreign encode: the stand-in transcode differs from the CPU's")
+
+
+def _transcode_app(work: Path, dev) -> subprocess.Popen:
+    """``apps.transcode --device=cuda`` on ``work/foreign.bin`` in a
+    process of its own, started before the library call so that the two
+    host-bound transcodes run on two cores at once."""
+    log = open(work / "transcode_app.log", "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "rabbit_transcoding_tpu_torch.apps.transcode",
+         "--compressedStreamPath=foreign.bin", "--outStreamPath=out.bin",
+         f"--geometryQP={GEO_QP}", f"--attributeQP={ATTR_QP}",
+         f"--occupancyPrecision={FOREIGN_PRECISION}", f"--device={dev.type}"],
+        cwd=work, stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
+
+
+def foreign_apps_phase(app: subprocess.Popen, out: bytes, work: Path,
+                       card) -> None:
+    """30. ``apps.parser --bin`` on the foreign stream prints the HEVC probe
+    lines; ``apps.transcode --device=cuda`` on it (started with phase 27)
+    writes the library call's bytes (phase 27's output)."""
+    rc_p, lines = _run_app(parser_app.main, ["--bin=foreign.bin"], work)
+    hevc = [ln.strip() for ln in lines if " HEVC " in ln]
+    t0 = time.perf_counter()
+    rc_t = app.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    got = (work / "out.bin").read_bytes() if rc_t == 0 else b""
+    phase("foreign_apps", parser_rc=rc_p, hevc_lines=hevc, transcode_rc=rc_t,
+          transcode_waited_s=f"{waited:.3f}", bytes_equal_library=got == out,
+          card=repr(card))
+    want = [f"HEVC {WIDTH // testdata.OCC_PRECISION}x"
+            f"{HEIGHT // testdata.OCC_PRECISION} 8bit",
+            f"HEVC {WIDTH}x{HEIGHT} 10bit", f"HEVC {WIDTH}x{HEIGHT} 8bit"]
+    check(rc_p == 0 and all(any(w in ln for ln in hevc) for w in want),
+          f"parser app: rc {rc_p}, lines {hevc}")
+    check(rc_t == 0 and got == out,
+          f"transcode app: rc {rc_t}, {len(got)} bytes, log "
+          f"{(work / 'transcode_app.log').read_text()[-2000:]}")
+
+
+def foreign_phases(dev, card) -> None:
+    """26.-30. The foreign-codec route, with each phase's seconds."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "foreign"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    rbv_data, foreign, planes = foreign_stream_phase(dev, card)
+    t0 = _phase_seconds("foreign_stream", t0)
+    (work / "foreign.bin").write_bytes(foreign)
+    app = _transcode_app(work, dev)
+    try:
+        out = foreign_transcode_phase(foreign, planes, dev, card)
+        t0 = _phase_seconds("foreign_transcode", t0)
+        enc, dec = foreign_decode_phase(rbv_data, work, dev, card)
+        t0 = _phase_seconds("foreign_decode", t0)
+        foreign_encode_phase(enc, dec, dev, card)
+        t0 = _phase_seconds("foreign_encode", t0)
+        foreign_apps_phase(app, out, work, card)
+        _phase_seconds("foreign_apps", t0)
+    finally:
+        if app.poll() is None:
+            app.kill()
+            app.wait()
+
+
 def native_sources_built() -> bool:
     """The native library answers for all three of its sources: the rANS
     coder, the grid KNN and the spanning-tree orientation."""
@@ -1314,6 +1648,8 @@ def main() -> int:
     slice_phases(dev, card)
     # 22.-25. the encoder
     encoder_phases(dev, card)
+    # 26.-30. the foreign-codec route
+    foreign_phases(dev, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
     k_ms, k_dev, p_ms, bound, by, dense = times["luma"]

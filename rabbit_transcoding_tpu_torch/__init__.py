@@ -23,15 +23,10 @@ writer, SEI), ``core/`` (``Video``, ``Patch``), ``codec/`` (map-pair deltas,
 patch frames, hash SEI), ``utils/`` (enums, options, timing),
 ``transcoder/params.py`` and ``native/`` (the rANS library, built with g++
 into ``build/native/``).  Nothing here imports the reference package,
-``jax`` or ``triton``, and no CUDA library is loaded at import time.
+``jax`` or ``triton``, and no CUDA library is loaded at import time.  The
+package itself imports no torch either (``ops/dct.py``, the one user of
+``torch.matmul``, turns TF32 off), so that host-only children such as the
+stand-in codec (``mock_hevc.py``) start quickly.
 """
-
-import torch
-
-# fp32 everywhere: TF32 keeps ~10 mantissa bits, far too coarse for 10-bit
-# planes in a closed codec loop (the reference pins Precision.HIGHEST for the
-# same reason).  Set before the package's first CUDA op.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"

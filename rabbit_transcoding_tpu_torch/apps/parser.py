@@ -1,8 +1,9 @@
 """rabbit-parse of the PyTorch port — the PccAppParser analog: dump a V3C
 bitstream's structure and per-unit statistics (PccAppParser.cpp:50-79).
 
-Port of ``rabbit_transcoding_tpu/apps/parser.py`` for RBV payloads; host code
-only, so it takes no device."""
+Port of ``rabbit_transcoding_tpu/apps/parser.py``: RBV payloads, and HEVC and
+SHVC payloads through the foreign route's probes; host code only, so it
+takes no device."""
 
 from __future__ import annotations
 
@@ -67,10 +68,30 @@ def main(argv=None) -> int:
                         f"{' lossless' if info['lossless'] else ''}"
                     )
                 except ValueError:
-                    # HEVC / SHVC payloads: the probes of the foreign route
-                    raise NotImplementedError(
-                        "probing a payload that is not RBV (HEVC, SHVC) is "
-                        "not ported yet (ROADMAP, queue 1 item 9b)")
+                    from ..video.hevc_probe import hevc_layer_ids, probe_hevc
+
+                    info = probe_hevc(u.payload)
+                    if info and len(hevc_layer_ids(u.payload)) > 1:
+                        # SHVC: per-layer formats via the VPS rep_format
+                        # table (PccShvcParser::getVideoSize parity)
+                        from ..video.shvc import probe_shvc_layers
+
+                        try:
+                            layers = probe_shvc_layers(u.payload)
+                            line += "  SHVC " + ", ".join(
+                                f"L{lid}:{v['width']}x{v['height']}"
+                                f"@{v['bitdepth']}bit"
+                                for lid, v in sorted(layers.items())
+                            )
+                        except ValueError as e:
+                            line += f"  SHVC (probe failed: {e})"
+                    elif info:
+                        line += (
+                            f"  HEVC {info['width']}x{info['height']} "
+                            f"{info['bitdepth']}bit"
+                        )
+                    else:
+                        line += "  (unknown payload)"
             print(line)
         # HLS summary (PccAppParser's structure dump analog)
         try:

@@ -5,7 +5,8 @@ lists -> decode the video sub-streams -> occupancy maps -> batched patch->3D
 reprojection + colouring -> (optional SEI-driven smoothing) -> point clouds.
 ``Decoder(params, device)`` runs the video decodes, the reconstruction and
 the smoothing filters on ``device``: the card unless the caller asks for
-the CPU (no card raises).  Foreign (Annex-B) sub-streams are not ported yet.
+the CPU (no card raises).  Foreign (Annex-B) sub-streams decode on the host
+through the external decoder binary that the stream's signalling names.
 """
 
 from __future__ import annotations
@@ -82,21 +83,68 @@ class Decoder:
     # ------------------------------------------------------------------
     def _vdec(self, vtype: VideoType, data: bytes,
               output_bitdepth: int | None = None):
-        """Decode one video sub-stream.  RBV payloads decode natively on
-        the decoder's device; Annex-B payloads (an external decoder resolved
-        from the stream's codec-group signalling) are not ported yet."""
+        """Decode one video sub-stream, dispatching on its actual codec:
+        RBV payloads decode natively on the decoder's device; Annex-B
+        payloads resolve an external decoder from the stream's codec-group /
+        CCM signalling (PCCTranscoder::getCodedCodecId analog; decoder-side
+        routing of PCCDecoder.cpp:108-300 via PCCVideoDecoder::decompress)
+        and decode on the host through its binary."""
+        from ..video import codec_group as cg
+
         if data[:4] == rbv._MAGIC:
             return VideoDecoder.create(CodecId.RBV, self.device).decode(
                 data, output_bitdepth
             )
-        if data[:4] == b"\x00\x00\x00\x01" or data[:3] == b"\x00\x00\x01":
-            raise NotImplementedError(
-                f"foreign (Annex-B) {vtype.name} video is not ported yet "
-                f"(ROADMAP, queue 1 item 9b)")
-        raise ValueError(
-            f"unrecognised {vtype.name} video payload (neither RBV nor "
-            f"Annex-B)"
+        if not cg.is_annexb(data):
+            raise ValueError(
+                f"unrecognised {vtype.name} video payload (neither RBV nor "
+                f"Annex-B)"
+            )
+        from ..video import base as video_base
+        from ..video.external import decode_annexb_probed
+
+        ctx = self._ctx
+        comp = cg.component_of(vtype)
+        codec = cg.signalled_codec(ctx, self._sei_atlas, vtype, data)
+        if codec in (CodecId.RBV, CodecId.RBV_LOSSLESS):
+            # signalled RBV but the payload is Annex-B (e.g. a legacy stream
+            # with the default group): assume the HEVC family, as the
+            # transcoder's foreign route does
+            codec = CodecId.HM_APP
+        suffix = {"occupancy": "Occupancy", "geometry": "Geometry",
+                  "attribute": "Attribute"}[comp]
+        explicit = getattr(self.params, f"videoDecoder{suffix}Path", "")
+        if codec == CodecId.FFMPEG_APP:
+            name, template = "ffmpeg", video_base.FFMPEG_DECODER_TEMPLATE
+        else:
+            from ..video import external as external_mod
+
+            _, name, _, tmpl_name = video_base._EXTERNAL_APPS[codec]
+            template = getattr(external_mod, tmpl_name)
+        binary = video_base._resolve_binary(codec, name, "DECODER", explicit)
+        fb_w = fb_h = 0
+        if ctx is not None and ctx.vps_list and comp != "occupancy":
+            fb_w = ctx.vps.atlas(0).vps_frame_width
+            fb_h = ctx.vps.atlas(0).vps_frame_height
+        # SHVC layered payloads: keep NALs up to the requested layer before
+        # decoding (shvcLayerIndex, PccAppDecoder.cpp:160-163)
+        from ..video.hevc_probe import filter_hevc_layers, hevc_layer_ids
+
+        if (
+            self.params.shvcLayerIndex >= 0
+            and len(hevc_layer_ids(data)) > 1
+        ):
+            data = filter_hevc_layers(data, self.params.shvcLayerIndex)
+        video = decode_annexb_probed(
+            data, binary, template, fb_w, fb_h,
+            byte_stream=bool(getattr(
+                self.params, f"byteStreamVideoCoder{suffix}", True
+            )),
+            keep_files=self.params.keepIntermediateFiles,
         )
+        if output_bitdepth is not None and output_bitdepth != video.bitdepth:
+            video = video.convert_bitdepth(output_bitdepth)
+        return video
 
     def decode(self, context: Context, atlas_id: int = 0) -> list[PointSet]:
         atlas = context.atlas(atlas_id)

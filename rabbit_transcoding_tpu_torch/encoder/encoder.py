@@ -15,8 +15,9 @@ device work (normals, segmentation scores and refinement, occupancy
 scaling, fills, colour conversion, the RBV video encodes, reprojection and
 the closed loop's smoothing filters) as torch ops on ``device``: the card
 unless the caller asks for the CPU (no card raises).  External video codecs
-and the HDRTools colour conversion are not ported yet (ROADMAP, queue 1
-item 9b).
+(``videoEncoder<Comp>CodecId``) and the HDRTools colour conversion
+(``colorSpaceConversionPath``) run their binaries on the host; the closed
+loop then trusts the binary's reconstruction.
 """
 
 from __future__ import annotations
@@ -133,12 +134,6 @@ def _roi_index(centroid, rois) -> int:
         if d < best_d:
             best, best_d = i, d
     return best
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP, queue 1 item 9b: foreign "
-        f"route)")
 
 
 class Encoder:
@@ -1354,7 +1349,15 @@ class Encoder:
             elif p.colorSpaceConversionPath and p.colorSpaceConversionConfig:
                 # external HDRConvert RGB444->YUV420 (colorSpaceConversion*
                 # options; PCCVirtualColorConverter HDRTOOLS path)
-                raise _not_ported("the HDRTools colour conversion")
+                from ..video.hdrtools import ExternalColorConverter
+
+                arr = rgb_u8.cpu().numpy()
+                attr_video = ExternalColorConverter(
+                    p.colorSpaceConversionPath, p.colorSpaceConversionConfig
+                ).convert(Video(
+                    width, height, 8, ColorFormat.RGB444,
+                    [arr[..., 0], arr[..., 1], arr[..., 2]],
+                ))
             else:
                 y, u, v = rgb8_to_yuv420(rgb_u8, p.chromaDownsampleFilter)
                 attr_video = Video(
@@ -1679,7 +1682,15 @@ class Encoder:
                 and p.inverseColorSpaceConversionConfig
             ):
                 # closed loop mirrors the decoder's HDRConvert inverse
-                raise _not_ported("the HDRTools colour conversion")
+                from ..video.hdrtools import ExternalColorConverter
+
+                conv = ExternalColorConverter(
+                    p.colorSpaceConversionPath,
+                    p.inverseColorSpaceConversionConfig,
+                ).convert(attr_recon)
+                rgb_rec = np.stack(
+                    [np.asarray(pl) for pl in conv.planes], axis=-1
+                )
             else:
                 rgb_rec = yuv420_to_rgb8(
                     self._dev(attr_recon.planes[0]),
@@ -1878,7 +1889,8 @@ class Encoder:
         geo_payload_maps=None, attr_payload_maps=None,
         attr_payload_parts=None,
     ) -> Context:
-        from ..video.base import RBV_4CC, component_codec_id, rbv_signalling
+        from ..video import codec_group as cg
+        from ..video.base import component_codec_id
 
         p = self.params
         # coded-size / min-d quantizer units (must match encode()'s padding)
@@ -1894,9 +1906,21 @@ class Encoder:
         # group explicitly.  All-RBV streams are CODEC_GROUP_MP4RA with an
         # 'rbv1' Component Codec Mapping SEI entry; external codecs signal
         # their family's group (getCodedCodecId inverse).
-        for comp in ("Occupancy", "Geometry", "Attribute"):
-            component_codec_id(p, comp)    # raises on an external codec
-        sig = rbv_signalling()
+        from ..utils.enums import CodecId
+
+        sig = cg.signalling(
+            component_codec_id(p, "Occupancy"),
+            component_codec_id(p, "Geometry"),
+            component_codec_id(p, "Attribute"),
+            pinned_group=p.profileCodecGroupIdc or None,
+            codec_id_index={
+                CodecId.JM_APP: p.avcCodecIdIndex,
+                CodecId.HM_APP: p.hevcCodecIdIndex,
+                CodecId.FFMPEG_APP: p.hevcCodecIdIndex,
+                CodecId.SHM_APP: p.shvcCodecIdIndex,
+                CodecId.VTM_APP: p.vvcCodecIdIndex,
+            },
+        )
         ptl.ptl_profile_codec_group_idc = (
             p.profileCodecGroupIdc if p.profileCodecGroupIdc
             else sig.profile_codec_group_idc
@@ -1987,7 +2011,7 @@ class Encoder:
         refl_cid = 0
         if refl_payload is not None:
             refl_cid = next(
-                (c for c, f in sig.ccm_entries if f == RBV_4CC), None
+                (c for c, f in sig.ccm_entries if f == cg.RBV_4CC), None
             )
             if refl_cid is None:
                 # a fresh id: distinct from every group-component id AND
@@ -1996,7 +2020,7 @@ class Encoder:
                     c for c, _ in sig.ccm_entries
                 }
                 refl_cid = max(used, default=-1) + 1
-                sig.ccm_entries.append((refl_cid, RBV_4CC))
+                sig.ccm_entries.append((refl_cid, cg.RBV_4CC))
         if sig.ccm_entries:
             from ..bitstream.sei import SeiComponentCodecMapping
 

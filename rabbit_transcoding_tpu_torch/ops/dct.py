@@ -2,8 +2,9 @@
 
 Port of ``rabbit_transcoding_tpu/ops/dct.py``.  A 2D DCT-II of a BxB block
 is ``D @ X @ D^T``; batching every block into one ``(..., B, B)`` tensor turns
-the transform into two batched matrix products.  The package turns TF32 off,
-so ``torch.matmul`` runs in full fp32 (the reference's ``Precision.HIGHEST``).
+the transform into two batched matrix products.  This module turns TF32 off
+when it is imported, so ``torch.matmul`` runs in full fp32 (the reference's
+``Precision.HIGHEST``).
 
 Summation order.  The reference's fp32 dot on the CPU sums each contraction
 in four interleaved FMA partial sums (terms ``j = t mod 4``) and combines
@@ -21,6 +22,12 @@ import functools
 import numpy as np
 import torch
 
+# fp32 everywhere: TF32 keeps ~10 mantissa bits, far too coarse for 10-bit
+# planes in a closed codec loop (the reference pins Precision.HIGHEST for the
+# same reason).  This module holds the port's only matrix products; every
+# path to them imports it first.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 @functools.lru_cache(maxsize=None)
 def dct_matrix(n: int) -> np.ndarray:

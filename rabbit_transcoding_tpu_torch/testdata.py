@@ -89,7 +89,7 @@ from .utils.enums import (
     PatchModeITile,
     VideoType,
 )
-from .video import VideoEncoder, VideoEncoderParams, rbv
+from .video import VideoDecoder, VideoEncoder, VideoEncoderParams, rbv
 
 
 def content(frames: int, width: int, height: int):
@@ -281,6 +281,92 @@ def with_input_qps(data: bytes, geometry_qp: int, attribute_qp: int,
             vt, rbv.requantize(vb.data, qp, device=device)))
     writer = V3CWriter()
     return writer.write(writer.encode(context))
+
+
+# the codec group of an HEVC V3C stream (PCCBitstreamCommon.h:169-173)
+_HEVC_GROUP = 1
+
+
+def _foreign_payload(video: Video, codec: str, qp: int,
+                     occupancy: bool) -> bytes:
+    from . import mock_hevc
+    from .video import hevc_intra, hevc_ipcm
+
+    if codec == "mock":
+        return mock_hevc.encode(video, qp)[0]
+    if occupancy:
+        return hevc_ipcm.encode(video)
+    return hevc_intra.encode(video, qp)
+
+
+def to_foreign(data: bytes, device=torch.device("cpu"), codec: str = "intra",
+               geometry_qp: int = 16, attribute_qp: int = 22,
+               workers: int = 1) -> bytes:
+    """The first GOF of an RBV V3C stream with its videos decoded (on
+    ``device``) and re-encoded as HEVC Annex-B -> V3C bytes signalling the
+    HEVC Main10 codec group: a foreign stream of the same content.
+
+    ``codec="intra"``: the in-tree subsets, occupancy as IPCM (lossless) and
+    the other videos as the compressed all-intra subset at the given QPs
+    (geometry QP for geometry videos, attribute QP for the others);
+    ``codec="mock"``: the stand-in codec (``mock_hevc``) at those QPs, the
+    occupancy at QP 4 (a quantiser step of 1: lossless).  ``workers`` > 1
+    encodes the videos in that many processes at once (the subsets code on
+    the host, one video per core)."""
+    reader = V3CReader()
+    context = reader.decode(reader.read(data)[0])
+    context.vps.profile_tier_level.ptl_profile_codec_group_idc = _HEVC_GROUP
+    atlas = context.atlas(0)
+    dec = VideoDecoder.create(CodecId.RBV, device)
+    jobs = []
+    for vt, vb in list(atlas.video_bitstreams.items()):
+        occupancy = vt == VideoType.OCCUPANCY
+        qp = (4 if occupancy else geometry_qp if vt.name.startswith(
+            "GEOMETRY") else attribute_qp)
+        jobs.append((vt, (dec.decode(vb.data), codec, qp, occupancy)))
+    if workers > 1:
+        import concurrent.futures
+        import multiprocessing
+
+        with concurrent.futures.ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")
+        ) as pool:
+            payloads = list(pool.map(_foreign_payload,
+                                     *zip(*(args for _, args in jobs))))
+    else:
+        payloads = [_foreign_payload(*args) for _, args in jobs]
+    for (vt, _), payload in zip(jobs, payloads):
+        atlas.set_video_bitstream(VideoBitstream(vt, payload))
+    writer = V3CWriter()
+    return writer.write(writer.encode(context))
+
+
+def write_codec_wrappers(directory) -> tuple[str, str]:
+    """Write ``TAppEncoder.sh`` and ``TAppDecoder.sh`` into ``directory``:
+    executables that run the stand-in codec (``python -m
+    rabbit_transcoding_tpu_torch.mock_hevc encode|decode``) under HM's
+    argument conventions -> (encoder path, decoder path).  They put the
+    root of this checkout on ``PYTHONPATH``, so that the child process
+    imports this package wherever it runs, installed or not."""
+    import shlex
+    import stat
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = []
+    for name, mode in (("TAppEncoder.sh", "encode"),
+                       ("TAppDecoder.sh", "decode")):
+        path = os.path.join(str(directory), name)
+        with open(path, "w") as f:
+            f.write(
+                "#!/bin/sh\n"
+                f"PYTHONPATH={shlex.quote(root)}${{PYTHONPATH:+:$PYTHONPATH}}\n"
+                "export PYTHONPATH\n"
+                f"exec {shlex.quote(sys.executable)} -m "
+                f"rabbit_transcoding_tpu_torch.mock_hevc {mode} \"$@\"\n")
+        os.chmod(path, os.stat(path).st_mode | stat.S_IEXEC)
+        paths.append(path)
+    return paths[0], paths[1]
 
 
 def stream_planes(data: bytes, device=torch.device("cpu")) -> dict:

@@ -20,14 +20,21 @@ hash SEI, and leave all other atlas metadata intact for remux.
 * ``rate_mode="abr"`` searches each component family's QP for a bit budget;
   the probes are the transcodes themselves, and the chosen QPs are cached
   per ``Transcoder`` across GOFs.
+* Foreign (Annex-B: HEVC, AVC, SHVC) video takes the reference's baseline
+  route on the host (``transcoder/foreign.py``): an SHVC layered payload
+  loses its layers above ``shvcLayerIndex``; else the payload is decoded and
+  re-encoded at the new QP by an external codec binary, or by the in-tree
+  HEVC subsets (IPCM, compressed all-intra) when no binary resolves and the
+  payload lies inside one; else it passes through untouched.  The foreign
+  occupancy's max-pool downscale runs on ``device``.
 
 Parameters are the reference's ``TranscoderParameters`` (the port's copy,
-``transcoder/params.py``), unchanged.  Foreign
-(Annex-B) video raises ``NotImplementedError`` naming the ROADMAP item that
-will port it.
+``transcoder/params.py``), unchanged.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -55,12 +62,6 @@ _GEO_TYPES = {VideoType.GEOMETRY, VideoType.GEOMETRY_D0,
               VideoType.GEOMETRY_D1}
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP, queue 1 item {item})"
-    )
-
-
 def _is_lossless_rbv(vb) -> bool:
     return vb.data.startswith(b"RBV") and rbv.probe(vb.data)["lossless"]
 
@@ -83,6 +84,7 @@ class Transcoder:
         self.timer = StageTimer()
         # ABR: {"<family>:<stream>": (chosen QP, produced bytes)} across GOFs
         self._rc_cache: dict[str, tuple[int, int]] = {}
+        self._ctx: Context | None = None  # set per transcode() call
 
     # ------------------------------------------------------------------
     def _keep_intermediate(self, atlas, stage: str) -> None:
@@ -101,6 +103,8 @@ class Transcoder:
         """Transcode one GOF's atlas in place (PCCTranscoder::transcode)."""
         p = self.params
         atlas = context.atlas(atlas_id)
+        # the stream's signalling, for the foreign route's codec family
+        self._ctx = context
         self._keep_intermediate(atlas, "in")
 
         # lossless inputs re-encode through a background-filled pixel path;
@@ -166,7 +170,8 @@ class Transcoder:
         if vb is None or p.occupancyPrecision <= 0:
             return
         if not vb.data.startswith(b"RBV"):
-            raise _not_ported("foreign (Annex-B) occupancy video", "9b")
+            self._transcode_occupancy_foreign(atlas, vb)
+            return
         info = rbv.probe(vb.data)
         # incoming precision is implicit: atlas width / occupancy video width
         asps = atlas.asps_list[0]
@@ -180,8 +185,7 @@ class Transcoder:
             )
         factor = p.occupancyPrecision // cur_precision
         video = VideoDecoder.create(CodecId.RBV, self.device).decode(vb.data)
-        occ = torch.from_numpy(np.ascontiguousarray(video.planes[0]))
-        small = downscale_maxpool(occ.to(self.device), factor).cpu().numpy()
+        small = self._maxpool(video.planes[0], factor)
         out_video = Video(
             video.width // factor, video.height // factor, video.bitdepth,
             ColorFormat.YUV400, [small],
@@ -189,6 +193,58 @@ class Transcoder:
         payload, _ = VideoEncoder.create(
             CodecId.RBV_LOSSLESS, self.device
         ).encode(out_video, VideoEncoderParams(lossless=True))
+        atlas.set_video_bitstream(VideoBitstream(VideoType.OCCUPANCY, payload))
+
+    def _maxpool(self, plane: np.ndarray, factor: int) -> np.ndarray:
+        """(F, H, W) max-pool by ``factor`` on the transcoder's device."""
+        occ = torch.from_numpy(np.ascontiguousarray(plane))
+        if occ.dtype == torch.uint16:   # no max reduction over uint16
+            occ = occ.to(torch.int32)
+        small = downscale_maxpool(occ.to(self.device), factor)
+        return small.cpu().numpy().astype(plane.dtype)
+
+    def _transcode_occupancy_foreign(self, atlas, vb) -> None:
+        """Foreign (Annex-B) occupancy: decode through the resolved codec,
+        max-pool to the coarser target precision, re-encode at
+        occupancyMapQP (PCCTranscoder::transcodeBaseline occupancy leg,
+        PCCTranscoder.cpp:180-232 with resizeOccupancyMap :341-372).
+        Passthrough when no codec resolves."""
+        from . import foreign
+
+        p = self.params
+        if not foreign.is_annexb(vb.data):
+            raise ValueError(
+                "unrecognized OCCUPANCY video payload (not RBV, not Annex-B)"
+            )
+        codec = foreign.resolve(p, VideoType.OCCUPANCY, self._ctx, atlas,
+                                vb.data)
+        if codec is None or not atlas.asps_list:
+            return  # pass through untouched
+        asps = atlas.asps_list[0]
+        video = codec.decode(vb.data)
+        # the incoming precision is implicit in the decoded video's width
+        # (PCCTranscoder.cpp:206)
+        cur_precision = max(1, asps.asps_frame_width // video.width)
+        if p.occupancyPrecision < cur_precision:
+            raise ValueError(
+                f"cannot upscale occupancy precision {cur_precision} -> "
+                f"{p.occupancyPrecision}"
+            )
+        factor = p.occupancyPrecision // cur_precision
+        if factor * cur_precision != p.occupancyPrecision:
+            print(
+                f"warning: occupancyPrecision {p.occupancyPrecision} is not "
+                f"a multiple of the stream's precision {cur_precision}; "
+                f"using {factor * cur_precision}",
+                file=sys.stderr,
+            )
+        if factor > 1:
+            video = Video(
+                video.width // factor, video.height // factor,
+                video.bitdepth, video.format,
+                [self._maxpool(pl, factor) for pl in video.planes],
+            )
+        payload = codec.encode(video, p.occupancyMapQP)
         atlas.set_video_bitstream(VideoBitstream(VideoType.OCCUPANCY, payload))
 
     # ------------------------------------------------------------------
@@ -356,15 +412,18 @@ class Transcoder:
             return
         payload = self._transcode_payload_any(atlas, vtype, vb, qp,
                                               occ_mask=occ_mask)
-        atlas.set_video_bitstream(VideoBitstream(vtype, payload))
+        if payload is not None:
+            atlas.set_video_bitstream(VideoBitstream(vtype, payload))
 
     def _transcode_payload_any(self, atlas, vtype: VideoType, vb, qp: int,
-                               occ_mask: np.ndarray | None = None) -> bytes:
-        """One sub-stream payload -> transcoded payload (used for both the
-        standard VideoType slots and the attr_ext streams)."""
+                               occ_mask: np.ndarray | None = None
+                               ) -> bytes | None:
+        """One sub-stream payload -> transcoded payload, or None for
+        passthrough (used for both the standard VideoType slots and the
+        attr_ext streams)."""
         p = self.params
         if not vb.data.startswith(b"RBV"):
-            raise _not_ported(f"foreign (Annex-B) {vtype.name} video", "9b")
+            return self._transcode_foreign(atlas, vtype, vb)
         info = rbv.probe(vb.data)
         if info["lossless"]:
             return self._reencode_lossless_filled(atlas, vb, qp, occ_mask)
@@ -380,6 +439,38 @@ class Transcoder:
             device=self.device,
         )
 
+    def _transcode_foreign(self, atlas, vtype: VideoType, vb) -> bytes | None:
+        """A foreign (HEVC/AVC Annex-B) payload, by three routes in order:
+        (1) SHVC layered payloads keep their layers up to shvcLayerIndex, a
+        conforming lower-rate sub-bitstream with no pixel re-encode (the
+        reference's shvcLayerIndex path over PccShvcParser); (2) decode and
+        re-encode at the new QP through the resolved codec
+        (PCCTranscoder::transcodeBaseline, ``transcoder/foreign.py``); (3)
+        None, passthrough.  A payload that is neither RBV nor Annex-B is
+        corrupt and raises, so the stream app's failure containment sees
+        it."""
+        from ..video.hevc_probe import filter_hevc_layers, hevc_layer_ids
+        from . import foreign
+
+        p = self.params
+        if not foreign.is_annexb(vb.data):
+            raise ValueError(
+                f"unrecognized {vtype.name} video payload "
+                f"(not RBV, not Annex-B)"
+            )
+        if p.shvcLayerIndex >= 0 and len(hevc_layer_ids(vb.data)) > 1:
+            return filter_hevc_layers(vb.data, p.shvcLayerIndex)
+        codec = foreign.resolve(p, vtype, self._ctx, atlas, vb.data)
+        if codec is None:
+            return None
+        asps = atlas.asps_list[0] if atlas.asps_list else None
+        video = codec.decode(
+            vb.data,
+            fallback_width=asps.asps_frame_width if asps else 0,
+            fallback_height=asps.asps_frame_height if asps else 0,
+        )
+        return codec.encode(video, foreign.foreign_qp(p, vtype))
+
     def _transcode_attr_ext(self, atlas, qp: int,
                             occ_mask: np.ndarray | None = None) -> None:
         """Dimension-partitioned / extra attribute sub-streams transcode at
@@ -387,7 +478,9 @@ class Transcoder:
         for key, vb in list(atlas.attr_ext.items()):
             payload = self._transcode_payload_any(
                 atlas, VideoType.ATTRIBUTE, vb, qp, occ_mask=occ_mask)
-            atlas.attr_ext[key] = VideoBitstream(VideoType.ATTRIBUTE, payload)
+            if payload is not None:
+                atlas.attr_ext[key] = VideoBitstream(VideoType.ATTRIBUTE,
+                                                     payload)
 
     def _transcode_reflectance(self, atlas, qp: int,
                                occ_mask: np.ndarray | None = None) -> None:
@@ -398,8 +491,9 @@ class Transcoder:
             return
         payload = self._transcode_payload_any(
             atlas, VideoType.ATTRIBUTE_REFL, vb, qp, occ_mask=occ_mask)
-        atlas.set_video_bitstream(
-            VideoBitstream(VideoType.ATTRIBUTE_REFL, payload))
+        if payload is not None:
+            atlas.set_video_bitstream(
+                VideoBitstream(VideoType.ATTRIBUTE_REFL, payload))
 
     # ------------------------------------------------------------------
     def _rate_control(self, atlas, occ_mask=None,

@@ -51,6 +51,19 @@ from test_option_parity import (
 )
 from test_torch_decoder import decode_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 STREAM = "scene_lossy_occupancy_pbf"      # 2 frames, ~11,500 points each
 
 
@@ -320,17 +333,39 @@ def test_parser_app_equal_to_the_reference_app(files, tmp_path):
 
 
 def test_parser_app_names_item_9b_for_foreign_payloads(tmp_path):
-    from rabbit_transcoding_tpu_torch.bitstream import V3CReader, V3CWriter
+    """Ported: foreign payloads get the JAX parser's lines, byte for byte:
+    HEVC SPS probes (the in-tree subsets), SHVC per-layer formats, and
+    "(unknown payload)" for Annex-B without an SPS."""
+    from rabbit_transcoding_tpu_torch.bitstream import (
+        V3CReader, V3CWriter, VideoBitstream)
+    from rabbit_transcoding_tpu_torch.testdata import to_foreign
+    from rabbit_transcoding_tpu_torch.utils.enums import VideoType
+
+    from test_torch_foreign import shvc_payload
 
     reader = V3CReader()
     context = reader.decode(reader.read(make_stream(2, 64, 64))[0])
     for vb in context.atlas(0).video_bitstreams.values():
         vb.data = b"\x00\x00\x00\x01\x40\x01" + bytes(40)
     writer = V3CWriter()
-    path = tmp_path / "foreign.bin"
-    path.write_bytes(writer.write(writer.encode(context)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        parser_app.main([f"--bin={path}"])
+    unknown = writer.write(writer.encode(context))
+    context = reader.decode(reader.read(to_foreign(make_stream(2, 64, 64)))[0])
+    context.atlas(0).set_video_bitstream(
+        VideoBitstream(VideoType.GEOMETRY, shvc_payload()))
+    layered = writer.write(writer.encode(context))
+    for name, data in (("unknown", unknown), ("layered", layered)):
+        path = tmp_path / f"{name}.bin"
+        path.write_bytes(data)
+        rc, out, _ = _run(parser_app.main, [f"--bin={path}"],
+                          str(tmp_path / "p"))
+        ref_rc, ref_out, _ = _run(ref_parser_app.main, [f"--bin={path}"],
+                                  str(tmp_path / "r"))
+        assert rc == ref_rc == 0
+        assert out == ref_out
+    assert sum("(unknown payload)" in ln for ln in out + ref_out) == 0
+    text = "\n".join(out)
+    assert "  SHVC L0:64x64@10bit, L1:128x128@8bit" in text
+    assert "  HEVC 32x32 8bit" in text and "  HEVC 64x64 8bit" in text
 
 
 @pytest.mark.parametrize("fmt,depth,extra", [

@@ -718,3 +718,25 @@ def test_encoder_on_the_card_writes_the_committed_stream(cuda, name):
                          cuda).encode(GroupOfFrames(sources))
     writer = V3CWriter()
     assert writer.write(writer.encode(context)) == data
+
+
+def test_foreign_transcode_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    # a stream of the in-tree HEVC subsets with no external binary: the
+    # occupancy's max-pool runs on the card, the HEVC coding on the host
+    from rabbit_transcoding_tpu_torch import testdata
+    from rabbit_transcoding_tpu_torch.transcoder import (
+        Transcoder, TranscoderParameters, V3CReader, V3CWriter)
+
+    monkeypatch.setenv("PATH", "/nonexistent")
+    for role in ("ENCODER", "DECODER"):
+        monkeypatch.delenv(f"RABBIT_HM_APP_{role}", raising=False)
+    data = testdata.to_foreign(testdata.make_stream(2, 64, 64), cuda)
+    params = TranscoderParameters(geometryQP=32, attributeQP=42,
+                                  occupancyPrecision=4)
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        reader, writer = V3CReader(), V3CWriter()
+        context = reader.decode(reader.read(data)[0])
+        Transcoder(params, device).transcode(context)
+        outs.append(writer.write(writer.encode(context)))
+    assert outs[0] == outs[1] and outs[0] != data

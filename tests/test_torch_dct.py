@@ -9,6 +9,18 @@ from rabbit_transcoding_tpu.ops import dct as ref
 from rabbit_transcoding_tpu_torch.ops import dct
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _blocks(seed: int, shape=(6, 5, 16, 16)) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.uniform(-1023, 1023, size=shape).astype(np.float32)

@@ -23,6 +23,19 @@ from rabbit_transcoding_tpu_torch.decoder.decoder import (
 )
 from rabbit_transcoding_tpu_torch.testdata import make_stream, patch_units
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FIELDS = ("positions", "colors", "types", "partition", "reflectances")
 
 
@@ -158,14 +171,39 @@ def test_decoder_defaults_to_the_card(monkeypatch):
     assert Decoder(device="cpu").device == torch.device("cpu")
 
 
-def test_annexb_payload_names_the_roadmap_item():
-    from rabbit_transcoding_tpu_torch.utils.enums import VideoType
+def test_annexb_payload_names_the_roadmap_item(tmp_path, monkeypatch):
+    """Ported: an Annex-B payload decodes through the external decoder that
+    the signalling names (HM for a payload with an HEVC SPS) and gives the
+    JAX decoder's video; with no binary both packages raise alike, and a
+    payload that is neither RBV nor Annex-B raises ValueError in both."""
+    from rabbit_transcoding_tpu.utils.enums import VideoType as RefVideoType
+    from rabbit_transcoding_tpu_torch import mock_hevc
+    from rabbit_transcoding_tpu_torch.core.image import Video
+    from rabbit_transcoding_tpu_torch.testdata import write_codec_wrappers
+    from rabbit_transcoding_tpu_torch.utils.enums import ColorFormat, VideoType
 
-    dec = Decoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        dec._vdec(VideoType.GEOMETRY, b"\x00\x00\x00\x01\x40\x01")
-    with pytest.raises(ValueError, match="neither RBV nor"):
-        dec._vdec(VideoType.GEOMETRY, b"nonsense")
+    from test_torch_foreign import write_ref_wrappers
+
+    port_dec, ref_dec = Decoder(device="cpu"), RefDecoder()
+    geo = np.random.default_rng(3).integers(0, 1024, (2, 16, 32))
+    data, _ = mock_hevc.encode(Video(32, 16, 10, ColorFormat.YUV400,
+                                     [geo.astype(np.uint16)]), 12)
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.delenv("RABBIT_HM_APP_DECODER", raising=False)
+    for dec, vt in ((port_dec, VideoType), (ref_dec, RefVideoType)):
+        with pytest.raises(RuntimeError, match="no TAppDecoder binary"):
+            dec._vdec(vt.GEOMETRY, data)
+        with pytest.raises(ValueError, match="neither RBV nor"):
+            dec._vdec(vt.GEOMETRY, b"nonsense")
+    videos = []
+    for dec, vt, binary in (
+            (port_dec, VideoType, write_codec_wrappers(tmp_path)[1]),
+            (ref_dec, RefVideoType, write_ref_wrappers(tmp_path / "r")[1])):
+        monkeypatch.setenv("RABBIT_HM_APP_DECODER", binary)
+        videos.append(dec._vdec(vt.GEOMETRY, data, output_bitdepth=8))
+    got, want = videos
+    assert got.bitdepth == want.bitdepth == 8
+    np.testing.assert_array_equal(got.planes[0], want.planes[0])
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -5,6 +5,7 @@ checksums.  The streams and the comparison are those of
 ``test_torch_decoder_streams.py``."""
 
 import pytest
+import torch
 
 from test_torch_decoder import decode_port
 from test_torch_decoder_streams import (  # noqa: F401  (streams: a fixture)
@@ -12,6 +13,18 @@ from test_torch_decoder_streams import (  # noqa: F401  (streams: a fixture)
     check_stream,
     streams,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("name", POINT_STREAMS)

@@ -7,6 +7,7 @@ output.  Only bytes pass between the packages."""
 
 import numpy as np
 import pytest
+import torch
 
 from rabbit_transcoding_tpu import bitstream as ref_bitstream
 from rabbit_transcoding_tpu.core.gof import GroupOfFrames
@@ -22,6 +23,19 @@ from rabbit_transcoding_tpu_torch.utils.enums import VideoType
 
 from test_e2e_codec import make_sphere_cloud
 from test_torch_decoder import assert_clouds_equal, decode_port, decode_ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 _BASE = dict(minimumImageWidth=256, minimumImageHeight=64, geometryQP=8,
              attributeQP=16, occupancyPrecision=2, frameCount=1,

@@ -4,8 +4,10 @@
   the JAX encoder): the port, given the committed source clouds and
   parameters, writes each ``<name>.bin`` byte for byte, with its own
   normals.  No JAX encoder runs.
-* ``Encoder()`` defaults to the card and raises without one; external codecs
-  and the HDRTools conversion raise naming their ROADMAP item.
+* ``Encoder()`` defaults to the card and raises without one; an external
+  codec (the stand-in HM binaries) for the geometry or the attribute, and
+  the HDRTools conversion (a stand-in HDRConvert), give the JAX encoder's
+  bytes.
 * The colour-conversion app against the JAX app.
 
 ``encode_both`` is the helper of the knob files
@@ -94,18 +96,22 @@ def same_normals():
         segment._segmentation_normals = own_normals
 
 
-def encode_both(params: dict, clouds) -> tuple:
+def encode_both(params: dict, clouds, port_params: dict | None = None
+                ) -> tuple:
     """-> ((JAX bytes, closed-loop checksums), (port bytes, checksums)),
-    the port on the CPU given the JAX normals."""
+    the port on the CPU given the JAX normals; ``port_params`` overrides
+    some of ``params`` for the port (its own stand-in binaries)."""
     with same_normals() as fed:
         ctx, rec = RefEncoder(RefEncoderParameters(**params)).encode(
             RefGroupOfFrames(clouds))
         want = (_write(ref_bitstream.V3CWriter(), ctx),
                 [ps.compute_checksum() for ps in rec])
-        port_clouds = [PointSet(positions=c.positions, colors=c.colors)
+        port_clouds = [PointSet(positions=c.positions, colors=c.colors,
+                                reflectances=c.reflectances)
                        for c in clouds]
-        ctx, rec = Encoder(EncoderParameters(**params), "cpu").encode(
-            GroupOfFrames(port_clouds))
+        ctx, rec = Encoder(
+            EncoderParameters(**{**params, **(port_params or {})}), "cpu"
+        ).encode(GroupOfFrames(port_clouds))
         got = (_write(bitstream.V3CWriter(), ctx),
                [ps.compute_checksum() for ps in rec])
         assert not fed
@@ -142,18 +148,53 @@ def test_encoder_defaults_to_the_card():
 
 @pytest.mark.parametrize("option", ["videoEncoderGeometryCodecId",
                                     "videoEncoderAttributeCodecId"])
-def test_external_codecs_raise_naming_their_roadmap_item(option):
-    params = EncoderParameters(**KNOB_BASE, **{option: "HM_APP"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        Encoder(params, "cpu").encode(GroupOfFrames(knob_clouds()))
+def test_external_codecs_raise_naming_their_roadmap_item(option, tmp_path):
+    """Ported: HM_APP for the component, through the stand-in binaries of
+    each package (the port's ``mock_hevc`` and the JAX package's), gives
+    the JAX encoder's V3C bytes and closed-loop checksums; the component's
+    sub-stream is Annex-B, the others RBV."""
+    from rabbit_transcoding_tpu_torch.bitstream import V3CReader
+    from test_torch_foreign import write_ref_wrappers
+
+    comp = option[len("videoEncoder"):-len("CodecId")]
+    port_enc, _ = testdata.write_codec_wrappers(tmp_path)
+    ref_enc, _ = write_ref_wrappers(tmp_path / "ref")
+    path = f"videoEncoder{comp}Path"
+    (want, want_sums), (got, got_sums) = encode_both(
+        {**KNOB_BASE, option: "HM_APP", path: ref_enc}, knob_clouds(),
+        port_params={path: port_enc})
+    assert got == want and got_sums == want_sums
+    reader = V3CReader()
+    atlas = reader.decode(reader.read(got)[0]).atlas(0)
+    kinds = {vt.name: vb.data[:4] for vt, vb in
+             atlas.video_bitstreams.items()}
+    assert kinds[comp.upper()] == b"\x00\x00\x00\x01"
+    assert kinds["OCCUPANCY"] == b"RBV2"
 
 
-def test_hdrtools_conversion_raises_naming_its_roadmap_item():
-    params = EncoderParameters(**KNOB_BASE,
-                               colorSpaceConversionPath="HDRConvert",
-                               colorSpaceConversionConfig="rgb_to_yuv.cfg")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        Encoder(params, "cpu").encode(GroupOfFrames(knob_clouds()))
+def test_hdrtools_conversion_raises_naming_its_roadmap_item(tmp_path):
+    """Ported: the HDRTools colour conversion (a stand-in HDRConvert for
+    RGB444 -> YUV420 and its inverse in the closed loop) gives the JAX
+    encoder's bytes and checksums."""
+    from test_torch_foreign import write_hdrconvert
+
+    binary = write_hdrconvert(tmp_path)
+    (tmp_path / "fwd.cfg").write_text(
+        "SourceBitDepthCmp0: 8\nSourceChromaFormat: 3\nSourceColorSpace: 1\n"
+        "OutputBitDepthCmp0: 8\nOutputChromaFormat: 1\n"
+        "OutputColorSpace: 0\n")
+    (tmp_path / "inv.cfg").write_text(
+        "SourceBitDepthCmp0: 8\nSourceChromaFormat: 1\nSourceColorSpace: 0\n"
+        "OutputBitDepthCmp0: 8\nOutputChromaFormat: 3\n"
+        "OutputColorSpace: 1\n")
+    params = dict(KNOB_BASE, colorSpaceConversionPath=binary,
+                  colorSpaceConversionConfig=str(tmp_path / "fwd.cfg"),
+                  inverseColorSpaceConversionConfig=str(tmp_path / "inv.cfg"))
+    (want, want_sums), (got, got_sums) = encode_both(params, knob_clouds())
+    assert got == want and got_sums == want_sums
+    # the stand-in's colours differ from the internal conversion's
+    (plain, _), _ = encode_both(KNOB_BASE, knob_clouds())
+    assert got != plain
 
 
 @pytest.mark.parametrize("conversion", ["rgb444toyuv420", "yuv420torgb444"])

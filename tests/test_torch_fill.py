@@ -37,6 +37,18 @@ from rabbit_transcoding_tpu_torch.utils.enums import VideoType
 from test_e2e_codec import make_sphere_cloud
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _planes(shape, density, seed):
     rng = np.random.default_rng(seed)
     img = np.round(rng.random(shape) * 1023).astype(np.float32)

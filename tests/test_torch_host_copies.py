@@ -58,6 +58,18 @@ from test_e2e_codec import make_sphere_cloud
 from test_torch_transcoder import _bench_make_stream
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _encoder_stream(**kw) -> bytes:
     """A stream of the reference's V-PCC encoder: patches, SEI, per-map
     sub-streams where asked."""

@@ -181,6 +181,56 @@ def test_cpu_encode_leaves_the_reference_and_jax_unimported(tmp_path):
     )
 
 
+def test_cpu_foreign_transcode_leaves_the_reference_and_jax_unimported(
+        tmp_path):
+    # a stream of the in-tree HEVC subsets through the transcoder, and one
+    # of the stand-in codec through the transcoder and the decoder with the
+    # stand-in binaries (child processes of their own)
+    _run(
+        "from rabbit_transcoding_tpu_torch import testdata\n"
+        "from rabbit_transcoding_tpu_torch.decoder.decoder import (\n"
+        "    Decoder, DecoderParameters)\n"
+        "from rabbit_transcoding_tpu_torch.transcoder import (\n"
+        "    Transcoder, TranscoderParameters, V3CReader, V3CWriter)\n"
+        "data = testdata.make_stream(2, 128, 128, patches=True)\n"
+        f"enc, dec = testdata.write_codec_wrappers({str(tmp_path)!r})\n"
+        "reader, writer = V3CReader(), V3CWriter()\n"
+        "for codec, paths in (('intra', {}), ('mock', {\n"
+        "        'videoEncoderGeometryPath': enc,\n"
+        "        'videoDecoderGeometryPath': dec})):\n"
+        "    foreign = testdata.to_foreign(data, codec=codec)\n"
+        "    context = reader.decode(reader.read(foreign)[0])\n"
+        "    Transcoder(TranscoderParameters(geometryQP=34, **paths),\n"
+        "               'cpu').transcode(context)\n"
+        "    out = writer.write(writer.encode(context))\n"
+        "    assert out != foreign\n"
+        "clouds = Decoder(DecoderParameters(\n"
+        "    videoDecoderOccupancyPath=dec, videoDecoderGeometryPath=dec,\n"
+        "    videoDecoderAttributePath=dec), 'cpu').decode(\n"
+        "    reader.decode(reader.read(out)[0]))\n"
+        "assert sum(ps.point_count for ps in clouds) > 1000\n"
+        "ref = [m for m in sys.modules if m == 'rabbit_transcoding_tpu'\n"
+        "       or m.startswith('rabbit_transcoding_tpu.')]\n"
+        "assert not ref, ref\n"
+    )
+
+
+def test_the_stand_in_codec_imports_no_torch():
+    # the stand-in's child processes start without torch (and so quickly)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "import rabbit_transcoding_tpu_torch.mock_hevc\n"
+         "import rabbit_transcoding_tpu_torch.video.hevc_intra\n"
+         "bad = [m for m in ('torch', 'jax', 'rabbit_transcoding_tpu')\n"
+         "       if m in sys.modules]\n"
+         "assert not bad, bad\n"
+         "print('ok')\n"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.split() == ["ok"], (
+        proc.stderr)
+
+
 def _imported_modules(path: Path) -> set[str]:
     tree = ast.parse(path.read_text(), str(path))
     names = set()
@@ -199,6 +249,13 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
     assert ROOT / "rabbit_transcoding_tpu_torch/metrics/metrics.py" in files
     assert ROOT / "rabbit_transcoding_tpu_torch/apps/decode.py" in files
     assert ROOT / "rabbit_transcoding_tpu_torch/encoder/encoder.py" in files
+    # the foreign route's modules and the stand-in codec
+    for name in ("video/hevc_probe.py", "video/codec_group.py",
+                 "video/hevc_ipcm.py", "video/hevc_intra.py",
+                 "video/shvc.py", "video/external.py", "video/hdrtools.py",
+                 "transcoder/foreign.py", "conformance/refgate.py",
+                 "mock_hevc.py"):
+        assert ROOT / "rabbit_transcoding_tpu_torch" / name in files
     bad = {
         str(f.relative_to(ROOT)): sorted(
             m for m in _imported_modules(f)

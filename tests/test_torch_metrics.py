@@ -14,6 +14,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from rabbit_transcoding_tpu import bitstream as ref_bitstream
 from rabbit_transcoding_tpu.core.pointset import PointSet as RefPointSet
@@ -38,6 +39,19 @@ from rabbit_transcoding_tpu_torch.transcoder import (
 )
 
 from test_torch_decoder import decode_port
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 D2_FIELDS = ("d2_mse", "d2_psnr", "d2_hausdorff", "d2_hausdorff_psnr")
 EXACT_FIELDS = tuple(

@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from rabbit_transcoding_tpu import bitstream as ref_bitstream
 from rabbit_transcoding_tpu.core.gof import GroupOfFrames
@@ -36,6 +37,18 @@ from rabbit_transcoding_tpu_torch.transcoder.multistream import (
 from rabbit_transcoding_tpu_torch.transcoder.params import TranscoderParameters
 
 from test_e2e_codec import make_sphere_cloud
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _payload(qp, f=4, h=64, w=96, mc=False, gop=2, intra=False):

@@ -27,6 +27,19 @@ from rabbit_transcoding_tpu_torch import native, testdata
 from rabbit_transcoding_tpu_torch.encoder import normals as port
 from rabbit_transcoding_tpu_torch.testdata import normals_mismatch as mismatch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ceilings on the mismatch of unit normals, port on the CPU against JAX on
 # the CPU (measured: largest angle 1.4e-6 rad on the three clouds below, no
 # normal beyond 1e-5 rad, no sign differs after the orientation)

@@ -25,6 +25,18 @@ from rabbit_transcoding_tpu_torch.ops.dct import blockify, deblockify
 from rabbit_transcoding_tpu_torch.video import rbv
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qs(qp: int) -> float:
     return float(np.float32(ref.qstep_of(qp)))
 

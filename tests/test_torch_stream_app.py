@@ -21,6 +21,19 @@ from rabbit_transcoding_tpu_torch.bitstream.video_bitstream import VideoBitstrea
 from rabbit_transcoding_tpu_torch.testdata import make_stream, with_input_qps
 from rabbit_transcoding_tpu_torch.utils.enums import V3CUnitType, VideoType
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test process while this module runs: the
+    tier-1 run puts six test processes on the host's cores, and torch's
+    default pool of one thread per core in each of them oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 QPS = dict(geometryQP=28, attributeQP=38)
 
 
