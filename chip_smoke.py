@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode,
 the V-PCC decode, the normals and quality metrics on streams that the
-V-PCC encoder wrote, the port's V-PCC encoder, and the foreign-codec route
-(HEVC sub-streams).
+V-PCC encoder wrote, the port's V-PCC encoder, the foreign-codec route
+(HEVC sub-streams) and the device mesh.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -132,7 +132,29 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     checksums) and transcoded through the stand-in (card = CPU);
 30. ``foreign_apps``: ``apps/parser.py`` on phase 26's stream prints its
     HEVC probe lines; ``apps/transcode.py --device=cuda`` on it, run in a
-    process of its own beside phase 27, writes phase 27's bytes.
+    process of its own beside phase 27, writes phase 27's bytes;
+31.-35. the device mesh, each phase on (a) card 0 alone, (b) a virtual
+    (4, 2) mesh that lists card 0 eight times, and (c) every visible card
+    when there are two or more (else a line says why (c) did not run):
+31. ``mesh_transcode``: ``MESH_STREAMS`` bench streams (phase 8's four,
+    repeated; input QPs 16-22) and the MC + intra stream through
+    ``MultiStreamTranscoder(mesh=...)``, so that the kernel's branch and
+    the plain chains both run and the kernel's group of 9 splits unevenly:
+    bytes equal to the sequential ``Transcoder`` on every mesh; in a
+    recorded round every ``transcode_coeffs_batched`` launch held against
+    its plain version and counted per device; aggregate frames/s, one
+    warm-up and 3 timed rounds;
+32. ``mesh_step``: the sharded all-intra step (``parallel/mesh.py``) on
+    phase 8's four luma stacks: q2 and recon equal (a)'s, one kernel launch
+    per shard, the MSE;
+33. ``mesh_decode``: phase 13's patch stream through
+    ``Decoder(DecoderParameters(shardingMesh=mesh))``: clouds equal (a)'s
+    and phase 14's, arrays in order; decode frames/s;
+34. ``mesh_metrics``: ``d1_psnr_sharded`` of frame 0 of the first
+    committed encoder stream against its source cloud: equal to (a)'s and
+    within ``MESH_D1_BOUND_DB`` of ``compute_metrics``' D1;
+35. ``mesh_stream_app``: the stream app's batched mode over each mesh:
+    bytes equal to phase 12's per-stream outputs, no batched-round failure.
 
 The kernel table as JSON and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
@@ -176,9 +198,13 @@ from rabbit_transcoding_tpu_torch.encoder import normals as nm
 from rabbit_transcoding_tpu_torch.encoder.encoder import Encoder
 from rabbit_transcoding_tpu_torch.encoder.params import EncoderParameters
 from rabbit_transcoding_tpu_torch.metrics.metrics import (
-    compute_sequence_metrics,
+    MetricsParams, compute_sequence_metrics, d1_psnr_sharded,
 )
 from rabbit_transcoding_tpu_torch.ops.events import median_ms
+from rabbit_transcoding_tpu_torch.parallel import multistream as ms_mod
+from rabbit_transcoding_tpu_torch.parallel.mesh import (
+    make_mesh, make_sharded_transcode_step,
+)
 from rabbit_transcoding_tpu_torch.testdata import (
     make_stream, stream_coeffs, stream_planes, with_input_qps,
 )
@@ -392,12 +418,13 @@ def batched_kernel_phase(streams: list[bytes], dev, card) -> dict:
 
 def multistream_phase(streams: list[bytes], dev, params,
                       card) -> tuple[int, int]:
-    """9. S = 1, 2, 4 streams batched against the sequential loop ->
-    (batched kernel launches of the S = 4 runs, per run)."""
+    """9. S = 1, 2, 4 streams batched on card 0 against the sequential loop
+    -> (batched kernel launches of the S = 4 runs, per run)."""
     launches = per_run = 0
     for s in (1, 2, 4):
         datas = streams[:s]
-        mst = MultiStreamTranscoder(params, dev)
+        mst = MultiStreamTranscoder(
+            params, mesh=make_mesh([torch.device("cuda", 0)]))
         tc.LAUNCHES = tc.BATCHED_LAUNCHES = 0
         outs, walls = timed_runs(
             lambda: transcode_many_bytes(datas, dev, params, mst))
@@ -488,9 +515,11 @@ def abr_phase(data: bytes, target_mbps: float, dev, card) -> None:
           f"ABR QPs: GPU {gpu._rc_cache} CPU {cpu._rc_cache}")
 
 
-def stream_app_phase(streams: list[bytes], dev, card) -> None:
+def stream_app_phase(streams: list[bytes], dev, card) -> tuple:
     """12. The stream app's batched mode against its per-stream mode: 2
-    streams x 2 GOFs, in a directory of the checkout's build tree."""
+    streams x 2 GOFs, in a directory of the checkout's build tree, on the
+    mesh the app makes of ``dev`` -> (inputs, per-stream outputs, params,
+    the directory)."""
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     reader, writer = V3CReader(), V3CWriter()
@@ -526,8 +555,10 @@ def stream_app_phase(streams: list[bytes], dev, card) -> None:
     check(equal, "stream app: batched output differs from per-stream")
     check(failures == [0, 0] and batched_failures == [0, 0],
           f"stream app failures {failures}, batched {batched_failures}")
-    check(tc.BATCHED_LAUNCHES == 8,
-          f"stream app: {tc.BATCHED_LAUNCHES} batched launches, want 8")
+    want = 2 * 4 * kernel_shards(MultiStreamTranscoder(device=dev).mesh, 2)
+    check(tc.BATCHED_LAUNCHES == want,
+          f"stream app: {tc.BATCHED_LAUNCHES} batched launches, want {want}")
+    return inputs, plain, params, work
 
 
 def decode_clouds(data: bytes, device) -> tuple[list, Decoder, float]:
@@ -1423,6 +1454,271 @@ def foreign_phases(dev, card) -> None:
             app.wait()
 
 
+# ---------------------------------------------------------------------------
+# 31.-35. The device mesh
+# ---------------------------------------------------------------------------
+MESH_STREAMS = 9        # bench streams beside the MC + intra one
+MESH_D1_BOUND_DB = 0.2  # d1_psnr_sharded against compute_metrics' D1
+
+
+def meshes(dev0, card) -> list:
+    """(name, mesh): (a) ``dev0`` (card 0) alone, (b) a virtual (4, 2) mesh
+    on it, (c) every visible card when there are two or more."""
+    out = [("one", make_mesh([dev0])),
+           ("virtual_4x2", make_mesh([dev0] * 8, stream_axis=4))]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        out.append((f"every_card_{n}", make_mesh()))
+    else:
+        phase("mesh_every_card", skipped=True,
+              reason=f"{n} visible card: a mesh over every card would be "
+                     f"mesh (a) again", card=repr(card))
+    return out
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernel_shards(mesh, streams: int) -> int:
+    """Batched launches per plane for ``streams`` streams of the kernel's
+    branch: one per shard of the flattened mesh that holds a stream."""
+    return min(streams, mesh.size)
+
+
+class LaunchRecorder:
+    """Records every ``transcode_coeffs_batched`` call of the batched
+    multi-stream path (inputs, output, device) while installed; the calls
+    still go through the wrapper, which counts the launches."""
+
+    def __init__(self):
+        self.calls = []
+        self._real = ms_mod.transcode_coeffs_batched
+
+    def __enter__(self):
+        def spy(q, qs_in, qs_out, maxval, gop_in, gop_out):
+            out = self._real(q, qs_in, qs_out, maxval, gop_in, gop_out)
+            self.calls.append((q.clone(), qs_in.clone(), qs_out.clone(),
+                               maxval, gop_in, gop_out, out.clone()))
+            return out
+
+        ms_mod.transcode_coeffs_batched = spy
+        return self
+
+    def __exit__(self, *exc):
+        ms_mod.transcode_coeffs_batched = self._real
+
+
+def mesh_transcode_phase(datas: list[bytes], params, mesh_list, dev0,
+                         card) -> dict:
+    """31. ``MESH_STREAMS`` bench streams and the MC + intra stream through
+    ``MultiStreamTranscoder(mesh=...)`` on each mesh: bytes equal to the
+    sequential ``Transcoder`` on every mesh, each kernel launch of a
+    recorded round equal to its plain version, the launches per device and
+    round, and aggregate frames/s (median of 3 after a warm-up) ->
+    {mesh name: batched launches per round}."""
+    seq, seq_walls = timed_runs(
+        lambda: [transcode_bytes(d, dev0, params) for d in datas], n=1)
+    per_round = {}
+    for name, mesh in mesh_list:
+        mst = MultiStreamTranscoder(params, mesh=mesh)
+        with LaunchRecorder() as rec:
+            first = transcode_many_bytes(datas, dev0, params, mst)
+        sync(dev0)
+        worst = 0
+        for q, qi, qo, maxval, gi, go, out in rec.calls:
+            want = tc.transcode_coeffs_batched_ref(q, qi, qo, maxval, gi, go)
+            worst = max(worst, compare(out, want)[1]
+                        if out.numel() else 0)
+        by_device: dict[int, int] = {}
+        for call in rec.calls:
+            by_device[call[0].device.index] = by_device.get(
+                call[0].device.index, 0) + 1
+        recorded = len(rec.calls)
+        del rec     # the recorded tensors, before the timed rounds
+        tc.BATCHED_LAUNCHES = 0
+        outs, walls = timed_runs(
+            lambda: transcode_many_bytes(datas, dev0, params, mst))
+        runs = len(walls) + 1
+        per_round[name] = tc.BATCHED_LAUNCHES // runs
+        wall = statistics.median(walls)
+        frames = FRAMES * len(datas)
+        phase("mesh_transcode", mesh=name, shape=mesh.shape,
+              streams=len(datas), runs=len(walls), wall_s=repr(walls),
+              median_s=f"{wall:.4f}", frames_per_s=f"{frames / wall:.3f}",
+              sequential_wall_s=repr(seq_walls),
+              sequential_frames_per_s=f"{frames / seq_walls[0]:.3f}",
+              launches_per_round=per_round[name],
+              recorded_launches=recorded,
+              launches_per_device=json.dumps(by_device),
+              launch_max_abs_diff_vs_plain=worst,
+              bytes_equal=first == seq and outs == seq,
+              cards=mesh_card_count(mesh), card=repr(card))
+        want_launches = 4 * kernel_shards(mesh, len(datas) - 1)
+        check(first == seq and outs == seq,
+              f"mesh_transcode {name}: bytes differ from the sequential port")
+        check(recorded == want_launches
+              and per_round[name] * runs == tc.BATCHED_LAUNCHES
+              and per_round[name] == want_launches,
+              f"mesh_transcode {name}: {recorded} recorded and "
+              f"{tc.BATCHED_LAUNCHES} counted launches in {runs} rounds, "
+              f"want {want_launches} per round")
+        check(worst == 0, f"mesh_transcode {name}: a launch differs from "
+                          f"its plain version by {worst}")
+    return per_round
+
+
+def mesh_card_count(mesh) -> int:
+    return len({d.index for d in mesh.flat})
+
+
+def mesh_step_phase(luma: torch.Tensor, mesh_list, dev0, card) -> None:
+    """32. The sharded all-intra step at the bench luma shape (S = 4): q2
+    and recon equal mesh (a)'s; the MSE and the step's time."""
+    want = None
+    for name, mesh in mesh_list:
+        step = make_sharded_transcode_step(mesh)
+        args = (luma, qstep(STREAM_QPS[0]), qstep(GEO_QP), 1023.0)
+        before = tc.LAUNCHES
+        got = step(*args)
+        sync(dev0)
+        launches = tc.LAUNCHES - before
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(*args)
+            sync(dev0)
+            walls.append(time.perf_counter() - t0)
+        if want is None:
+            want = got
+        equal = (torch.equal(got[0], want[0])
+                 and torch.equal(got[1], want[1]))
+        phase("mesh_step", mesh=name, shape=tuple(luma.shape),
+              launches=launches, mse=f"{float(got[2]):.6f}",
+              mse_vs_a=float(got[2]) - float(want[2]), q2_recon_equal=equal,
+              wall_s=repr(walls), cards=mesh_card_count(mesh),
+              card=repr(card))
+        check(equal, f"mesh_step {name}: q2 or recon differ from mesh (a)")
+        check(launches == mesh.size,
+              f"mesh_step {name}: {launches} launches, want {mesh.size}")
+        check(abs(float(got[2]) - float(want[2]))
+              <= 1e-6 * float(want[2]), f"mesh_step {name}: MSE differs")
+
+
+def mesh_decode_phase(data: bytes, clouds: list | None, mesh_list, dev0,
+                      card) -> None:
+    """33. The decode cell's patch stream through
+    ``Decoder(DecoderParameters(shardingMesh=mesh))``: clouds equal mesh
+    (a)'s and the unsharded decode's, arrays in order; decode frames/s
+    (median of 3 after a warm-up)."""
+    reader = V3CReader()
+    units = reader.read(data)[0]
+    want = clouds
+    for name, mesh in mesh_list:
+        params = DecoderParameters(shardingMesh=mesh)
+        walls = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            got = Decoder(params, device=dev0).decode(reader.decode(units))
+            sync(dev0)
+            if i:
+                walls.append(time.perf_counter() - t0)
+        if want is None:
+            want = got
+        wall = statistics.median(walls)
+        equal = clouds_equal(got, want)
+        phase("mesh_decode", mesh=name, shape=mesh.shape,
+              runs=len(walls), wall_s=repr(walls), median_s=f"{wall:.4f}",
+              frames_per_s=f"{FRAMES / wall:.3f}",
+              points=sum(ps.point_count for ps in got),
+              clouds_equal=equal, cards=mesh_card_count(mesh),
+              card=repr(card))
+        check(equal, f"mesh_decode {name}: clouds differ")
+
+
+def mesh_metrics_phase(mesh_list, dev0, card) -> None:
+    """34. ``d1_psnr_sharded`` of frame 0 of the first committed encoder
+    stream, decoded on the card, against its source cloud: equal to mesh
+    (a)'s and within ``MESH_D1_BOUND_DB`` of ``compute_metrics``' D1 (the
+    committed reference value, which phase 20 holds the port to)."""
+    data, sources, record = testdata.load_encoder_stream(
+        testdata.ENCODER_STREAMS[0])
+    reader = V3CReader()
+    rec = Decoder(device=dev0).decode(
+        reader.decode(reader.read(data)[0]))[0]
+    plain = record["metrics_per_frame"][0].d1_psnr
+    want = None
+    for name, mesh in mesh_list:
+        t0 = time.perf_counter()
+        got = float(d1_psnr_sharded(sources[0], rec, mesh, MetricsParams()))
+        wall = time.perf_counter() - t0
+        want = got if want is None else want
+        phase("mesh_metrics", mesh=name, stream=testdata.ENCODER_STREAMS[0],
+              points=rec.point_count, d1_psnr_sharded=repr(got),
+              compute_metrics_d1=repr(plain), delta_db=got - plain,
+              seconds=f"{wall:.3f}", cards=mesh_card_count(mesh),
+              card=repr(card))
+        check(got == want, f"mesh_metrics {name}: D1 {got} != mesh (a)'s "
+                           f"{want}")
+        check(abs(got - plain) < MESH_D1_BOUND_DB,
+              f"mesh_metrics {name}: D1 {got} vs {plain}")
+
+
+def mesh_stream_app_phase(app_io, mesh_list, dev0, card) -> None:
+    """35. ``rabbit-stream --sharded=1``'s batched mode over each mesh:
+    bytes equal to the unsharded mode's (phase 12), no batched-round
+    failure."""
+    inputs, plain, params, work = app_io
+    for name, mesh in mesh_list:
+        outs = [str(work / f"mesh_{name}{i}.bin") for i in range(len(inputs))]
+        t0 = time.perf_counter()
+        results = stream_app.transcode_streams_sharded(inputs, outs, params,
+                                                       mesh=mesh)
+        wall = time.perf_counter() - t0
+        equal = all(Path(a).read_bytes() == Path(b).read_bytes()
+                    for a, b in zip(plain, outs))
+        failures = [r["failures"] for r in results]
+        batched_failures = [r["batched_failures"] for r in results]
+        phase("mesh_stream_app", mesh=name, bytes_equal=equal,
+              failures=failures, batched_failures=batched_failures,
+              wall_s=f"{wall:.3f}", cards=mesh_card_count(mesh),
+              card=repr(card))
+        check(equal, f"mesh_stream_app {name}: bytes differ")
+        check(not any(failures) and not any(batched_failures),
+              f"mesh_stream_app {name}: failures {failures}, batched "
+              f"{batched_failures}")
+
+
+def mesh_phases(streams: list[bytes], data_mi: bytes, luma: torch.Tensor,
+                patch_data: bytes, clouds: list | None, app_io, params,
+                card, dev0=torch.device("cuda", 0)) -> dict:
+    """31.-35. The device mesh around ``dev0`` (card 0), with each phase's
+    seconds -> batched launches per round of the mesh transcode, by
+    mesh."""
+    mesh_list = meshes(dev0, card)
+    t0 = time.perf_counter()
+    datas = [streams[i % len(streams)] for i in range(MESH_STREAMS)]
+    per_round = mesh_transcode_phase(datas + [data_mi], params, mesh_list,
+                                     dev0, card)
+    t0 = _phase_seconds("mesh_transcode", t0)
+    mesh_step_phase(luma, mesh_list, dev0, card)
+    t0 = _phase_seconds("mesh_step", t0)
+    mesh_decode_phase(patch_data, clouds, mesh_list, dev0, card)
+    t0 = _phase_seconds("mesh_decode", t0)
+    mesh_metrics_phase(mesh_list, dev0, card)
+    t0 = _phase_seconds("mesh_metrics", t0)
+    mesh_stream_app_phase(app_io, mesh_list, dev0, card)
+    _phase_seconds("mesh_stream_app", t0)
+    return per_round
+
+
+def luma_stack(streams: list[bytes], dev) -> torch.Tensor:
+    """The geometry luma coefficients of the streams, stacked (S, F, ...)."""
+    return torch.stack([stream_coeffs(d, dev)[("GEOMETRY", 0)]
+                        for d in streams])
+
+
 def native_sources_built() -> bool:
     """The native library answers for all three of its sources: the rANS
     coder, the grid KNN and the spanning-tree orientation."""
@@ -1626,7 +1922,7 @@ def main() -> int:
     abr_phase(data, main_out_bytes * 8 * 30.0 / FRAMES / 1e6, dev, card)
 
     # 12. the stream app's batched mode
-    stream_app_phase(streams, dev, card)
+    app_io = stream_app_phase(streams, dev, card)
 
     # 13. the decoder's streams, built on the card
     patch_streams = []
@@ -1650,6 +1946,10 @@ def main() -> int:
     encoder_phases(dev, card)
     # 26.-30. the foreign-codec route
     foreign_phases(dev, card)
+    # 31.-35. the device mesh
+    batched["launches_per_round_mesh"] = mesh_phases(
+        streams, data_mi, luma_stack(streams, dev), patch_streams[0], clouds,
+        app_io, params, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
     k_ms, k_dev, p_ms, bound, by, dense = times["luma"]

@@ -13,8 +13,9 @@ checkpoint and batch unit:
 * several input streams (comma-separated) transcode concurrently, one
   thread each, and ``--pipelineDepth`` GOFs of a stream are in flight;
 * ``--sharded=1`` with several inputs: each round batches every stream's
-  next GOF through ``MultiStreamTranscoder`` (on one device, "sharded" means
-  batched); the outputs are byte-identical to the unbatched mode.
+  next GOF through ``MultiStreamTranscoder``, sharded over a mesh of every
+  visible card for ``--device=cuda`` (of the one device for ``cpu`` or an
+  indexed card); the outputs are byte-identical to the unbatched mode.
 
     python -m rabbit_transcoding_tpu_torch.apps.stream \\
         --compressedStreamPath=a.bin,b.bin --outStreamPath=o.bin \\
@@ -235,16 +236,18 @@ def transcode_stream(path_in: str, path_out: str, params: StreamParams,
 
 def transcode_streams_sharded(inputs: list[str], outputs: list[str],
                               params: StreamParams,
-                              device: torch.device | str) -> list[dict]:
-    """All streams in lockstep on ``device``: each round takes the next
-    pending GOF of every stream and transcodes them through one
-    ``MultiStreamTranscoder`` call.  Failure containment stays per stream: a
+                              device: torch.device | str | None = None,
+                              mesh=None) -> list[dict]:
+    """All streams in lockstep over ``mesh`` or else the mesh that
+    ``MultiStreamTranscoder`` makes of ``device`` (give one of the two):
+    each round takes the next pending GOF of every stream and transcodes
+    them through one ``MultiStreamTranscoder`` call.  Failure containment stays per stream: a
     stream whose GOF fails to decode leaves the round (skipped or aborted
     per --onError); if the batched call itself fails, the exception is
     printed, counted in every result's ``batched_failures``, and the round
     falls back to per-stream transcoding, so that one poison stream cannot
     take the others down."""
-    mst = MultiStreamTranscoder(params, device)
+    mst = MultiStreamTranscoder(params, device, mesh)
     sios = [_StreamIO(i, o, params) for i, o in zip(inputs, outputs)]
     for sio in sios:
         sio.__enter__()

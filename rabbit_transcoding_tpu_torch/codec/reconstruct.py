@@ -1,8 +1,9 @@
 """Shared 3D reconstruction engine: occupancy maps, block-to-patch
 ownership, patch->3D reprojection and colouring for a whole GOF.
 
-Port of ``rabbit_transcoding_tpu/codec/reconstruct.py`` (without its mesh
-branch).  The GOF's occupancy, geometry and attribute planes go to the
+Port of ``rabbit_transcoding_tpu/codec/reconstruct.py``; with a mesh
+(``GeneratePointCloudParameters.mesh``) the reprojection's frames split over
+its devices (``parallel/pipeline.py``).  The GOF's occupancy, geometry and attribute planes go to the
 device once; reprojection, colour conversion, the boundary tags, the
 compaction of the valid pixels into points and the removal of duplicate
 points run there as dense masked tensor ops; only the compacted points come
@@ -25,6 +26,7 @@ from ..core.pointset import PointSet
 from ..device import resolve
 from ..ops import occupancy as occ_ops
 from ..ops import reproject as repro_ops
+from ..parallel.pipeline import sharded_reproject
 from ..ops.color import yuv420_to_rgb8
 from ..utils.enums import ColorFormat
 
@@ -66,6 +68,10 @@ class GeneratePointCloudParameters:
     # post-smoothing attribute re-transfer selector (attrTransferFilterType;
     # 0 = geometry smoothing excluded from attribute transfer)
     attr_transfer_filter_type: int = 0
+    # a parallel.mesh.Mesh splits the reprojection's frames over its
+    # devices (parallel/pipeline.py; equal to the one-device call, the
+    # results gathered back on the engine's device).  None = one device.
+    mesh: object = None
 
 
 def round_up(x: int, m: int) -> int:
@@ -385,9 +391,15 @@ class ReconstructionEngine:
         valid = None
         b2p0 = None
         for m in range(map_count):
-            pts_m, valid_m, b2p_m = repro_ops.reproject(
-                geo_all[m::map_count][:f, :h, :w], occ_dev, table_dev,
-                counts_dev, block, reverse=reverse)
+            geo_m = geo_all[m::map_count][:f, :h, :w]
+            if self.params.mesh is not None:
+                pts_m, valid_m, b2p_m = sharded_reproject(
+                    self.params.mesh, geo_m, occ_dev, table_dev, counts_dev,
+                    block, reverse=reverse)
+            else:
+                pts_m, valid_m, b2p_m = repro_ops.reproject(
+                    geo_m, occ_dev, table_dev, counts_dev, block,
+                    reverse=reverse)
             pts_maps.append(pts_m)
             if valid is None:
                 valid, b2p0 = valid_m, b2p_m

@@ -50,6 +50,10 @@ class DecoderParameters:
     # colour transform applied to the output clouds (0 none | 1 RGB->YCbCr
     # Rec.709; PccAppDecoder.cpp:111-115)
     colorTransform: int = 0
+    # a parallel.mesh.Mesh splits the reconstruction's per-frame
+    # reprojection over its devices (parallel/pipeline.py); the results
+    # come back to the decoder's device.  None = one device.
+    shardingMesh: object = None
     # HDRConvert for the attribute YUV420->RGB444 inverse conversion
     # (colorSpaceConversionPath + inverseColorSpaceConversionConfig)
     colorSpaceConversionPath: str = ""
@@ -268,6 +272,7 @@ class Decoder:
                 )
 
         gpc = GeneratePointCloudParameters()
+        gpc.mesh = self.params.shardingMesh
         # b2p precedence follows the signalled asps flag (PCCCodec.cpp:2068)
         if atlas.asps_list:
             gpc.patch_precedence = bool(

@@ -1,9 +1,11 @@
 """Quality metrics: D1/D2 PSNR, color PSNR, Hausdorff.
 
-Port of ``rabbit_transcoding_tpu/metrics/metrics.py`` (host float64 numpy,
-without the mesh path ``d1_psnr_sharded``); the one device call is
-``compute_normals`` when the source carries no normals, so the entry points
-take a ``device`` (the card unless the caller asks for the CPU).
+Port of ``rabbit_transcoding_tpu/metrics/metrics.py`` (host float64 numpy);
+the one device call is ``compute_normals`` when the source carries no
+normals, so the entry points take a ``device`` (the card unless the caller
+asks for the CPU).  ``d1_psnr_sharded`` is the mesh path: the plain D1's two
+nearest-neighbour passes on the device grid KNN, queries split over every
+device of a ``parallel.mesh.Mesh``.
 
 Capability parity with PCCMetrics (source/lib/PccLibMetrics/
 source/PCCMetrics.cpp:44-292): symmetric A<->B nearest-neighbour error,
@@ -305,6 +307,37 @@ def compute_metrics(
         m.color_psnr = tuple(psnrs)
         m.color_hausdorff_psnr = tuple(haus_psnrs)
     return m
+
+
+def d1_psnr_sharded(
+    source: PointSet,
+    reconstructed: PointSet,
+    mesh,
+    params: MetricsParams | None = None,
+    cell_bits: int = 3,
+    cap: int = 64,
+) -> float:
+    """Symmetric D1 PSNR over a mesh: both nearest-neighbour passes run on
+    the device grid-hash KNN with the query points split over every mesh
+    device and the (sum, count) partials added on its first device
+    (``parallel/pipeline.py``).
+
+    The throughput path for monitoring at scale: plain nearest-neighbour D1
+    (the pcc_error default), without the equidistant-tie / neighborsProc
+    refinements of ``compute_metrics``; use that for CTC-grade numbers."""
+    from ..parallel.pipeline import make_sharded_nn_mse
+
+    params = params or MetricsParams()
+    dd = int(params.drop_duplicates)
+    src = source.remove_duplicates(dd) if dd else source
+    rec = reconstructed.remove_duplicates(dd) if dd else reconstructed
+    grid_dim = max(2, (1 << 10) >> cell_bits)
+    nn_mse = make_sharded_nn_mse(
+        mesh, k_cell_bits=cell_bits, grid_dim=grid_dim, cap=cap
+    )
+    mse_ab = nn_mse(src.positions, rec.positions)
+    mse_ba = nn_mse(rec.positions, src.positions)
+    return _geom_psnr(max(mse_ab, mse_ba), params.resolution)
 
 
 def compute_sequence_metrics(

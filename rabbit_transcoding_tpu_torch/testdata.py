@@ -51,6 +51,12 @@ colours), ``make_scene_frame`` (a textured multi-object scene) and
 ``testdata`` cloud makers, pure numpy: clouds with a known surface for the
 normals and the metrics.
 
+Write a source sequence as PLY files (the reference's ``testdata`` CLI, the
+same bytes for the same arguments):
+
+    python -m rabbit_transcoding_tpu_torch.testdata --frames 4 \
+        --out cloud_%04d.ply [--scene sphere|blobs|dense] [--points N]
+
 Encoder streams.  ``load_encoder_stream`` reads one of the small V3C streams
 that the reference's V-PCC encoder wrote (``tests/fixtures_torch/``, made by
 ``tools/make_torch_fixtures.py``): real encoder output with its source
@@ -59,6 +65,7 @@ clouds and the reference decoder's checksums and metrics beside it.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 
@@ -658,3 +665,36 @@ def load_encoder_stream(name: str):
                                    for d in record["metrics_per_frame"]]
     record["metrics_summary"] = metrics(record["metrics_summary"])
     return data, sources, record
+
+
+SCENES = {
+    "sphere": make_frame,
+    "blobs": make_scene_frame,
+    "dense": make_dense_frame,
+}
+
+
+def main(argv=None) -> int:
+    """Write ``--frames`` clouds of a scene as PLY files."""
+    ap = argparse.ArgumentParser(
+        description="Write a synthetic point-cloud sequence as PLY files.")
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--points", type=int, default=40000)
+    ap.add_argument("--start", type=int, default=0)
+    ap.add_argument("--scene", choices=sorted(SCENES), default="sphere",
+                    help="sphere = smooth deforming sphere; blobs = textured "
+                         "multi-object scene with rigid motion + occlusion; "
+                         "dense = blobs at vox10 density with a swinging "
+                         "limb")
+    ap.add_argument("--out", default="cloud_%04d.ply")
+    args = ap.parse_args(argv)
+    for f in range(args.frames):
+        ps = SCENES[args.scene](f, n=args.points)
+        path = args.out % (args.start + f)
+        ps.write_ply(path)
+        print(f"{path}: {ps.point_count} points")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

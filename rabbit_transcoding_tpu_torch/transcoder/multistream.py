@@ -1,19 +1,21 @@
-"""Multi-stream transcoder: N GOF contexts, their lossy videos batched on the
-device.
+"""Multi-stream transcoder: N GOF contexts, their lossy videos batched over
+a device mesh.
 
-Port of ``rabbit_transcoding_tpu/transcoder/multistream.py`` without the
-device mesh.  Everything a single-stream ``Transcoder`` does per GOF happens
-here too (occupancy downscale, hash-SEI refresh, ABR), and the lossy video
-payloads of all streams go through ``parallel.multistream.
-transcode_payloads``: one batched device call per plane and group of streams
-of one shape.  Lossless inputs and predicted map pairs take each stream's own
-``Transcoder`` (``single(i)``), as in the reference; so does ABR, whose
-search and QP cache are per-stream state.
+Port of ``rabbit_transcoding_tpu/transcoder/multistream.py``.  Everything a
+single-stream ``Transcoder`` does per GOF happens here too (occupancy
+downscale, hash-SEI refresh, ABR), and the lossy video payloads of all
+streams go through ``parallel.multistream.transcode_payloads`` over the
+transcoder's mesh: one batched device call per plane, group of streams of
+one shape and shard.  Lossless inputs and predicted map pairs take each
+stream's own ``Transcoder`` (``single(i)``), as in the reference; so does
+ABR, whose search and QP cache are per-stream state.  Stream i's own
+``Transcoder`` runs on the first device of mesh row ``i % rows`` (rows: the
+"stream" axis).
 
 Output: byte-identical bitstreams to ``Transcoder.transcode`` on each
-context.  Unlike the reference's batched call, the batched call here is
-passed the geometry coefficient threshold, so that this holds with
-``geometryCoeffThreshold`` set too (ROADMAP queue 3 item i).
+context, for every mesh.  Unlike the reference's batched call, the batched
+call here is passed the geometry coefficient threshold, so that this holds
+with ``geometryCoeffThreshold`` set too (ROADMAP queue 3 item i).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..bitstream.hls import Context
 from ..bitstream.video_bitstream import VideoBitstream
 from ..device import resolve
+from ..parallel.mesh import Mesh, mesh_of
 from ..parallel.multistream import transcode_payloads
 from ..utils.enums import VideoType
 from ..utils.timing import StageTimer
@@ -38,18 +41,39 @@ _ATTR_FAMILY = (VideoType.ATTRIBUTE, VideoType.ATTRIBUTE_T0,
 
 class MultiStreamTranscoder:
     def __init__(self, params: TranscoderParameters | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str | None = None,
+                 mesh: Mesh | None = None):
+        """``mesh`` places the batched calls; without one, ``device``
+        (default ``cuda``) gives it (``parallel.mesh.mesh_of``): every
+        visible card for ``cuda`` with no index, as the reference's
+        ``make_mesh()`` default, else that one device.  Giving both raises,
+        and so does a CUDA device where there is no card."""
+        if mesh is not None and device is not None:
+            raise ValueError("give a device or a mesh, not both")
         self.params = params or TranscoderParameters()
-        self.device = resolve(device)
+        self.device = (mesh.first if mesh is not None
+                       else resolve(device or "cuda"))
+        self._mesh = mesh
         self.timer = StageTimer()
         # one Transcoder per stream: per-stream state (the ABR QP cache) and
         # every non-batched stage
         self._singles: list[Transcoder] = []
 
+    @property
+    def mesh(self) -> Mesh:
+        """The mesh of the batched calls, made at first use."""
+        if self._mesh is None:
+            self._mesh = mesh_of(self.device)
+        return self._mesh
+
     def single(self, i: int) -> Transcoder:
-        """Stream i's own Transcoder (its ABR QP cache lives there)."""
+        """Stream i's own Transcoder (its ABR QP cache lives there), on the
+        first device of mesh row ``i % rows``."""
+        rows = self.mesh.devices
         while len(self._singles) <= i:
-            self._singles.append(Transcoder(self.params, self.device))
+            k = len(self._singles)
+            self._singles.append(Transcoder(self.params,
+                                            rows[k % len(rows), 0]))
         return self._singles[i]
 
     # ------------------------------------------------------------------
@@ -168,7 +192,7 @@ class MultiStreamTranscoder:
         for mode, ks in by_mode.items():
             payloads = transcode_payloads(
                 [atlases[k].video_bitstreams[vtype].data for k in ks], qp,
-                device=self.device,
+                mesh=self.mesh,
                 new_gop=1 if p.allIntra else p.videoGopSize, mode=mode,
                 coeff_threshold=(p.geometryCoeffThreshold
                                  if vtype in _GEO_TYPES else 0))

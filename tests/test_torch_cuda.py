@@ -219,7 +219,9 @@ def test_multistream_on_the_card_equals_the_sequential_port(cuda, kw,
         seq.append(write(ctx))
     ctxs = [reader.decode(reader.read(d)[0]) for d in streams]
     batched = tc.BATCHED_LAUNCHES
-    MultiStreamTranscoder(params, cuda).transcode_many(ctxs)
+    # one card: an unindexed device would shard over every visible card
+    MultiStreamTranscoder(params, torch.device("cuda", 0)).transcode_many(
+        ctxs)
     assert [write(c) for c in ctxs] == seq
     assert tc.BATCHED_LAUNCHES - batched == launches
 
@@ -740,3 +742,88 @@ def test_foreign_transcode_on_the_card_equals_the_cpu(cuda, monkeypatch):
         Transcoder(params, device).transcode(context)
         outs.append(writer.write(writer.encode(context)))
     assert outs[0] == outs[1] and outs[0] != data
+
+
+# --- the device mesh: a virtual mesh on card 0, and every card -----------------
+def _mesh_devices(cuda, which: str) -> list:
+    if which == "virtual":
+        return [torch.device("cuda", 0)] * 8
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("which", ["virtual", "every_card"])
+def test_mesh_transcode_on_the_card_equals_one_device(cuda, which):
+    # the kernel's branch and the MC + intra chains over a mesh: bytes
+    # equal to one card, one batched launch per shard and plane
+    from rabbit_transcoding_tpu_torch.parallel.mesh import make_mesh
+    from rabbit_transcoding_tpu_torch.parallel.multistream import (
+        transcode_payloads)
+    from rabbit_transcoding_tpu_torch.testdata import make_stream
+    from rabbit_transcoding_tpu_torch.transcoder import V3CReader, VideoType
+
+    mesh = make_mesh(_mesh_devices(cuda, which))
+    reader = V3CReader()
+    pays = []
+    for tools in ({}, {}, {}, {"motion": True, "intra": True}):
+        data = make_stream(2, 64, 64, device=cuda, **tools)
+        atlas = reader.decode(reader.read(data)[0]).atlas(0)
+        pays.append(atlas.video_bitstreams[VideoType.GEOMETRY].data)
+    qps = [30, 34, 32, 30]
+    one = transcode_payloads(pays, qps, torch.device("cuda", 0))
+    before = tc.BATCHED_LAUNCHES
+    assert transcode_payloads(pays, qps, mesh=mesh) == one
+    # 3 plain streams over the flattened mesh, one launch per shard that
+    # holds one
+    assert tc.BATCHED_LAUNCHES - before == min(3, mesh.size)
+
+
+@pytest.mark.parametrize("which", ["virtual", "every_card"])
+def test_mesh_step_reproject_and_nn_on_the_card(cuda, which):
+    from rabbit_transcoding_tpu_torch.core.patch import Patch
+    from rabbit_transcoding_tpu_torch.ops import reproject as repro
+    from rabbit_transcoding_tpu_torch.utils.enums import PatchOrientation
+    from rabbit_transcoding_tpu_torch.parallel import mesh as pm
+    from rabbit_transcoding_tpu_torch.parallel.pipeline import (
+        make_sharded_nn_mse, sharded_reproject)
+
+    mesh = pm.make_mesh(_mesh_devices(cuda, which))
+    rng = np.random.default_rng(3)
+    c = torch.from_numpy(rng.integers(-40, 40, size=(5, 3, 4, 2, 16, 16))
+                         .astype(np.int16))
+    want = pm.transcode_compute_step(c, _qs(16), _qs(32), 1023.0)
+    got = pm.make_sharded_transcode_step(mesh)(c.to(cuda), _qs(16), _qs(32),
+                                               1023.0)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert abs(float(got[2]) - float(want[2])) <= 1e-6 * float(want[2])
+
+    f, h, w = 5, 64, 64
+    occ = torch.from_numpy((rng.random((f, h, w)) < 0.5).astype(np.uint8))
+    geo = torch.from_numpy(rng.integers(0, 200, (f, h, w)).astype(np.int32))
+    patches = []
+    for k in range(f):
+        p = Patch()
+        p.size_u0, p.size_v0 = 3, 4
+        p.u1, p.v1, p.d1 = 10 + k, 20, 30
+        p.normal_axis, p.tangent_axis, p.bitangent_axis = 0, 1, 2
+        p.orientation = PatchOrientation(k % 8)
+        p.projection_mode = k % 2
+        p.occupancy_resolution = 16
+        patches.append([p])
+    table, counts = (torch.as_tensor(np.asarray(x)) for x in
+                     repro.build_patch_table(patches, 4))
+    args = [x.to(cuda) for x in (geo, occ, table, counts)]
+    for a, b in zip(sharded_reproject(mesh, *args, 16),
+                    repro.reproject(geo, occ, table, counts, 16)):
+        assert a.device == args[0].device
+        assert torch.equal(a.cpu(), b)
+
+    refs = rng.integers(200, 800, (20000, 3)).astype(np.int32)
+    queries = np.clip(refs[:9000] + rng.integers(-3, 4, (9000, 3)), 0,
+                      1023).astype(np.int32)
+    cpu_mesh = pm.make_mesh([torch.device("cpu")])
+    kw = dict(k_cell_bits=3, grid_dim=128, cap=64)
+    assert (make_sharded_nn_mse(mesh, **kw)(queries, refs)
+            == make_sharded_nn_mse(cpu_mesh, **kw)(queries, refs))

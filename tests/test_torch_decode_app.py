@@ -112,7 +112,7 @@ def test_option_table_is_the_reference_s_plus_device(monkeypatch):
         assert mod.main([]) == 0
     port_names = set(seen["port"].values)
     ref_names = set(seen["ref"].values)
-    # the mesh is not ported: one device
+    # shardingMesh takes a Mesh object, not a flag: no app registers it
     assert port_names == (ref_names - {"shardingMesh"}) | {"device"}
     for name in port_names - {"device"}:
         assert seen["port"][name] == seen["ref"][name], name

@@ -62,6 +62,18 @@ def test_decoder_modules_import_without_jax():
     )
 
 
+def test_mesh_modules_import_without_jax():
+    _run(
+        "import rabbit_transcoding_tpu_torch.parallel.mesh\n"
+        "import rabbit_transcoding_tpu_torch.parallel.pipeline\n"
+        "from rabbit_transcoding_tpu_torch.metrics.metrics import "
+        "d1_psnr_sharded\n"
+        "from rabbit_transcoding_tpu_torch.parallel.mesh import make_mesh\n"
+        "import torch\n"
+        "make_mesh([torch.device('cpu')] * 4)\n"
+    )
+
+
 def test_every_module_imports_without_jax():
     _run(
         "import importlib, pkgutil, rabbit_transcoding_tpu_torch as pkg\n"

@@ -340,4 +340,8 @@ def test_metrics_default_to_the_card(monkeypatch):
         port.compute_metrics(a, a)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.compute_sequence_metrics([a], [a])
-    assert not hasattr(port, "d1_psnr_sharded")     # the mesh is not ported
+    # the mesh path: a mesh of every card raises where there is none
+    from rabbit_transcoding_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.d1_psnr_sharded(a, a, make_mesh())
