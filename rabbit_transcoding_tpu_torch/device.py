@@ -15,3 +15,16 @@ def resolve(device: torch.device | str = "cuda") -> torch.device:
             f"device {dev} asked for but no CUDA device is available (pass "
             f"device='cpu' for the plain PyTorch versions)")
     return dev
+
+
+def card_name_and_power() -> str:
+    """Card 0's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]

@@ -3,6 +3,7 @@ and loads no CUDA library when imported (the machine with the GPU has no
 JAX)."""
 
 import ast
+import re
 import os
 import subprocess
 import sys
@@ -275,3 +276,48 @@ def test_no_source_of_the_port_imports_the_reference_or_jax():
         for f in files
     }
     assert not {k: v for k, v in bad.items() if v}
+
+
+TWINS = ROOT / "rabbit_transcoding_tpu_torch" / "scripts"
+
+
+def test_the_harness_twins_import_neither_the_reference_nor_jax():
+    files = [ROOT / "rabbit_transcoding_tpu_torch" / "bench.py",
+             *sorted(TWINS.glob("*.py"))]
+    assert {f.name for f in files} >= {
+        "bench.py", "ladder.py", "ladder_big.py", "scaling.py",
+        "endurance_metrics.py", "rbv_rd.py"}
+    bad = {
+        str(f.relative_to(ROOT)): sorted(
+            m for m in _imported_modules(f)
+            if m.split(".")[0] in ("rabbit_transcoding_tpu", "jax", "jaxlib"))
+        for f in files
+    }
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def _shell_commands(text: str) -> list[str]:
+    """The script's commands, continuation lines joined."""
+    return text.replace("\\\n", " ").splitlines()
+
+
+def test_the_shell_twins_call_only_the_ports_modules():
+    scripts = sorted(TWINS.glob("*.sh"))
+    assert [s.name for s in scripts] == [
+        "compute_metrics.sh", "decode.sh", "endurance.sh", "run_ctc.sh",
+        "transcode.sh", "transcode_requant.sh"]
+    for script in scripts:
+        text = script.read_text()
+        # neither the JAX package nor its ``rabbit-*`` console scripts
+        assert "rabbit_transcoding_tpu." not in text, script.name
+        assert not re.search(r"(^|[\s;|&(`$])rabbit-[a-z]", text, re.M), (
+            script.name)
+        apps = [c for c in _shell_commands(text)
+                if "-m rabbit_transcoding_tpu_torch.apps." in c]
+        assert apps, script.name
+        # every app that touches a device is given $DEVICE (cuda by default)
+        for cmd in apps:
+            if ".apps.conformance" not in cmd:
+                assert re.search(r'--device="\$\{?DEVICE', cmd), (
+                    script.name, cmd)
+        assert 'DEVICE:-cuda' in text, script.name
