@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: the live RBV transcode,
 the V-PCC decode, the normals and quality metrics on streams that the
 V-PCC encoder wrote, the port's V-PCC encoder, the foreign-codec route
-(HEVC sub-streams), the device mesh and the measurement harness (the twins
-of ``bench.py`` and ``scripts/``).
+(HEVC sub-streams), the device mesh, the measurement harness (the twins
+of ``bench.py`` and ``scripts/``), the RBV blob modes 0-2 and int8 slab
+upload, and one stream per encoder branch.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -97,8 +98,9 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     on the first encoder stream with ``--device=cuda``: summary lines equal
     to the library call's;
 22. ``encode_fixtures``: the port's encoder on the card, given each
-    committed encoder stream's source clouds and parameters: bytes equal
-    the same encode with ``device=cpu`` and the committed stream, and the
+    committed encoder stream's source clouds and parameters (the three of
+    phase 19 and the seven branch streams of phase 41): bytes equal the
+    same encode with ``device=cpu`` and the committed stream, and the
     port's decoder on the card gives the committed checksums;
 23. ``encode_full``: two frames of ``make_dense_frame`` at an 8i frame's
     scale (``ENCODE_POINTS``: ~820,000 points a frame after the duplicates
@@ -164,15 +166,34 @@ Phases, one result line each; any failure raises and the exit code is not 0:
     quality keys and no TPU-tunnel key; its input stream equal to phase 4's,
     and its cell function on phase 4's stream writing phase 4's video
     sub-streams;
-37. ``ladder``: ``scripts/ladder.py``'s twin at its defaults on the card
-    (15 cells, the CSV and the delta table printed, 0 kernel launches), and
+37. ``ladder``: ``scripts/ladder.py``'s twin on the card at its defaults
+    but 2 frames (``LADDER``; 15 cells, the CSV and the delta table
+    printed, 0 kernel launches), and
     r1's three modes again on the CPU from the card's hq bytes: stream
     bytes, D1 and D2 equal, clouds as phase 14 holds them;
 38. ``scripts``: the scaling twin at 1, 2 and 4 devices, ``rbv_rd.ladder``
     on the moving texture at two QPs, and the shell twins ``LOOPS`` (every
     app ``run_ctc.sh`` calls) and ``endurance.sh`` (``ENDURANCE_ENV``),
     started before phase 36 and running beside 36-38: each on the card,
-    each exiting 0.
+    each exiting 0;
+39.-41. the JAX package's last behaviours and the encoder's branches, each
+    phase's seconds printed:
+39. ``blob_modes``: phase 3's geometry luma written as coefficient blobs of
+    modes 0 (dense zlib), 1 (global sparse, one index beyond the tensor)
+    and 2 (per-frame sparse) and decoded on the card: equal to the mode-3
+    decode and to the CPU's; the bench GOF rewritten to mode 2 transcodes
+    to phase 4's bytes through the kernel (4 launches);
+40. ``slab8``: the host -> device link rate (``rbv.measure_link_rate``),
+    then ``RBV_SLAB8=1`` forced: every lossy plane of the bench GOF decoded
+    through the int8 AC upload (each counted), tensors equal to phase 3's;
+    the GOF transcoded: phase 4's bytes;
+41. ``branch_fixtures``: the seven committed branch streams of the JAX
+    encoder (point local reconstruction, pixel interleaving, 45-degree
+    projection, level of detail, reflectance, per-map streams, lossless
+    raw points), each carrying its branch, decoded on the card (committed
+    checksums and point counts; the CPU decode's clouds as phase 14 holds
+    them, reflectances equal), transcoded (``reencode``, bytes equal to
+    ``device=cpu``, decoding) and measured as phase 20 measures.
 
 The kernel table as JSON and the card's name and power limit come before
 the last line, ``{"ok": true, "device": {...}}``.  Imports only the port,
@@ -1013,10 +1034,10 @@ def encode_bytes(sources, params: dict, device) -> tuple[bytes, Encoder,
 
 
 def encode_fixtures_phase(dev, card) -> None:
-    """22. The committed encoder streams re-encoded on the card from their
-    committed sources and parameters."""
+    """22. The committed encoder streams, the branch streams included,
+    re-encoded on the card from their committed sources and parameters."""
     cpu = torch.device("cpu")
-    for name in testdata.ENCODER_STREAMS:
+    for name in testdata.ENCODER_STREAMS + testdata.BRANCH_STREAMS:
         data, sources, record = testdata.load_encoder_stream(name)
         params = record["encoder_parameters"]
         (got, _, _), card_s = _timed(lambda: encode_bytes(sources, params,
@@ -1760,8 +1781,11 @@ LOOPS = ("transcode.sh", "transcode_requant.sh", "decode.sh",
 # script's own checks then fail in the JAX package as in the port
 ENDURANCE_ENV = {"FRAMES": "16", "GOF": "2"}
 SCRIPT_LIMIT_S = 900
-# scripts/ladder.py's defaults: scene, frames, points a frame
-LADDER = ("sphere", 4, 40000)
+# scripts/ladder.py's defaults (scene, frames, points a frame) with the
+# depth cut from 4 frames to 2 (one GOF of MC + intra still) to keep the
+# script under 800 s; the default ladder runs alone (``python -m
+# rabbit_transcoding_tpu_torch.scripts.ladder``)
+LADDER = ("sphere", 2, 40000)
 
 
 def _harness_env(**extra) -> dict:
@@ -1831,7 +1855,7 @@ def _start_shell(name: str, command: str, **env) -> subprocess.Popen:
 
 
 def ladder_phase(dev, card) -> None:
-    """37. ``scripts/ladder.py`` at its defaults on the card (15 cells, the
+    """37. ``scripts/ladder.py`` at ``LADDER`` on the card (15 cells, the
     CSV and the delta table printed), r1's three modes again on the CPU from
     the card's hq bytes: stream bytes equal, clouds as the decode-mismatch
     row allows, D1 and D2 equal."""
@@ -1945,6 +1969,189 @@ def harness_phases(data: bytes, main_out: bytes, dev, card) -> None:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
                 proc.wait()
+
+
+# ---------------------------------------------------------------------------
+# 39.-41. the JAX package's last behaviours: blob modes 0-2, the int8 AC slab
+# upload; the encoder's branch streams
+
+
+def blob_modes_phase(data: bytes, coeffs: dict, main_out: bytes, params,
+                     dev, card) -> None:
+    """39. Phase 3's geometry luma (the mode-3 decode on the card) written
+    as blobs of modes 0, 1 and 2 on the host, mode 1 with one index beyond
+    the tensor, and decoded on the card: equal to the mode-3 decode and to
+    the CPU's decode of the same blob.  Then the bench GOF with every lossy
+    payload rewritten to mode 2 (one index dropped per plane) through
+    ``Transcoder(device=cuda)``: phase 4's bytes, through the kernel."""
+    luma = coeffs[("GEOMETRY", 0)]
+    q = luma.cpu().numpy()
+    for mode in (0, 1, 2):
+        t0 = time.perf_counter()
+        blob = testdata.coeff_blob(q, mode, drop=mode == 1)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = rbv._decode_coeff_blob(blob, *q.shape[:4], dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        want = rbv._decode_coeff_blob(blob, *q.shape[:4], torch.device("cpu"))
+        phase("blob_modes", mode=mode, shape=tuple(q.shape),
+              blob_bytes=len(blob), dropped_index=mode == 1,
+              equal_to_mode3=torch.equal(got, luma),
+              equal_to_cpu=torch.equal(got.cpu(), want),
+              write_s=f"{write_s:.3f}", card_decode_s=f"{card_s:.3f}",
+              card=repr(card))
+        check(got.device.type == "cuda" and torch.equal(got, luma),
+              f"blob mode {mode}: the card's decode differs from mode 3's")
+        check(torch.equal(got.cpu(), want),
+              f"blob mode {mode}: card and CPU decodes differ")
+    t0 = time.perf_counter()
+    rewritten = testdata.with_blob_mode(data, 2, drop=True)
+    rewrite_s = time.perf_counter() - t0
+    tc.LAUNCHES = 0
+    out, t_s = _timed(lambda: transcode_bytes(rewritten, dev, params))
+    launches = tc.LAUNCHES
+    phase("blob_modes_stream", mode=2, bytes=len(rewritten),
+          equal_to_main_path=out == main_out, kernel_launches=launches,
+          rewrite_s=f"{rewrite_s:.3f}", transcode_s=f"{t_s:.3f}",
+          card=repr(card))
+    check(rewritten != data and out == main_out,
+          "the mode-2 bench GOF does not transcode to phase 4's bytes")
+    check(launches == 4, f"mode-2 bench GOF: {launches} kernel launches")
+
+
+@contextlib.contextmanager
+def slab8_forced():
+    """``RBV_SLAB8=1`` within the block, and the ``_from_freq_slab_split``
+    calls counted (the AC rows' dtype and device per call)."""
+    calls = []
+    split = rbv._from_freq_slab_split
+
+    def spy(dc, ac, b, kmax):
+        calls.append((ac.dtype, ac.device.type))
+        return split(dc, ac, b, kmax)
+
+    old = os.environ.get("RBV_SLAB8")
+    os.environ["RBV_SLAB8"] = "1"
+    rbv._from_freq_slab_split = spy
+    try:
+        yield calls
+    finally:
+        rbv._from_freq_slab_split = split
+        if old is None:
+            del os.environ["RBV_SLAB8"]
+        else:
+            os.environ["RBV_SLAB8"] = old
+
+
+def slab8_phase(data: bytes, coeffs: dict, main_out: bytes, params, dev,
+                card) -> None:
+    """40. The link rate (one timed 32 MiB push) and the int8 AC slab
+    upload forced on: the lossy planes of the bench GOF decoded on the card,
+    each whose AC fits int8 through the split upload (counted), tensors
+    equal to phase 3's default decode; the GOF transcoded: phase 4's
+    bytes, the same uploads counted again."""
+    rate = rbv.measure_link_rate(device=dev)
+    phase("slab8_link", link_mbps=f"{rate:.1f}",
+          threshold_mbps=rbv._SLAB8_LINK_THRESHOLD_MBPS,
+          int8_by_default=rbv._slab8_enabled(), card=repr(card))
+    with slab8_forced() as calls:
+        t0 = time.perf_counter()
+        planes = stream_coeffs(data, dev)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_calls = list(calls)
+        tc.LAUNCHES = 0
+        out, t_s = _timed(lambda: transcode_bytes(data, dev, params))
+        launches = tc.LAUNCHES
+        transcode_calls = calls[len(decode_calls):]
+    # a plane takes the split where it has any AC row and its AC fits int8
+    fits = sum(bool(q.any())
+               and q.reshape(-1, 256)[:, 1:].abs().max().item() <= 127
+               for q in coeffs.values())
+    equal = planes.keys() == coeffs.keys() and all(
+        torch.equal(planes[k], coeffs[k]) for k in coeffs)
+    phase("slab8", planes=len(planes), planes_fitting_int8=fits,
+          split_uploads=len(decode_calls),
+          transcode_split_uploads=len(transcode_calls),
+          coeffs_equal_default=equal, bytes_equal_default=out == main_out,
+          kernel_launches=launches, decode_s=f"{decode_s:.3f}",
+          transcode_s=f"{t_s:.3f}", card=repr(card))
+    check(fits > 0 and len(decode_calls) == fits
+          and len(transcode_calls) == fits
+          and all(c == (torch.int8, "cuda")
+                  for c in decode_calls + transcode_calls),
+          f"RBV_SLAB8=1: {fits} planes fit int8; split uploads "
+          f"{decode_calls} {transcode_calls}")
+    check(equal, "RBV_SLAB8=1: coefficients differ from the default path's")
+    check(out == main_out and launches == 4,
+          f"RBV_SLAB8=1: transcode bytes equal {out == main_out}, "
+          f"{launches} launches")
+
+
+def branch_fixtures_phase(dev, card) -> None:
+    """41. The seven branch streams the JAX encoder wrote
+    (``testdata.BRANCH_STREAMS``) on the card: each carries its branch; the
+    decode has the committed checksums and point counts and the CPU
+    decode's clouds (``clouds_vs_cpu``; reflectances equal); a
+    ``reencode`` transcode equal to the CPU's, which decodes; then phase
+    20's metrics check of the decodes against the committed values."""
+    cpu = torch.device("cpu")
+    params = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
+                                  mode="reencode")
+    streams = {}
+    for name in testdata.BRANCH_STREAMS:
+        data, sources, record = testdata.load_encoder_stream(name)
+        check(testdata.branch_carried(name, data),
+              f"{name}: the stream does not carry its branch")
+        clouds, _, wall = decode_clouds(data, dev)
+        clouds_cpu, _, cpu_s = decode_clouds(data, cpu)
+        clouds_vs_cpu("branch_decode_vs_cpu", clouds, clouds_cpu,
+                      stream=name, cpu_decode_s=f"{cpu_s:.3f}")
+        refl_equal = all(
+            (a.reflectances is None) == (b.reflectances is None)
+            and (a.reflectances is None
+                 or np.array_equal(a.reflectances, b.reflectances))
+            for a, b in zip(clouds, clouds_cpu))
+        sums = [ps.compute_checksum().hex() for ps in clouds]
+        counts = [int(ps.point_count) for ps in clouds]
+        tc.LAUNCHES = 0
+        out, t_s = _timed(lambda: transcode_bytes(data, dev, params))
+        launches = tc.LAUNCHES
+        out_cpu = transcode_bytes(data, cpu, params)
+        out_clouds, _, _ = decode_clouds(out, dev)
+        phase("branch_fixtures", stream=name, bytes=len(data),
+              points=counts, checksums_equal_reference=sums ==
+              record["checksums"],
+              counts_equal_reference=counts == record["point_counts"],
+              reflectances=clouds[0].reflectances is not None,
+              reflectances_equal_cpu=refl_equal, decode_s=f"{wall:.3f}",
+              transcode_s=f"{t_s:.3f}", transcoded_bytes=len(out),
+              transcode_bytes_equal_cpu=out == out_cpu,
+              kernel_launches=launches, card=repr(card))
+        check(sums == record["checksums"]
+              and counts == record["point_counts"],
+              f"{name}: the card's decode is not the reference decoder's")
+        check(refl_equal, f"{name}: card and CPU reflectances differ")
+        check(out == out_cpu and out != data,
+              f"{name}: card and CPU transcodes differ")
+        check(len(out_clouds) == len(clouds)
+              and all(ps.point_count > 0 for ps in out_clouds),
+              f"{name}: the transcoded stream does not decode")
+        streams[name] = (sources, record, clouds, out_clouds)
+    metrics_phase(streams, dev, card)
+
+
+def closing_phases(data: bytes, coeffs: dict, main_out: bytes, params, dev,
+                   card) -> None:
+    """39.-41., with each phase's seconds."""
+    t0 = time.perf_counter()
+    blob_modes_phase(data, coeffs, main_out, params, dev, card)
+    t0 = _phase_seconds("blob_modes", t0)
+    slab8_phase(data, coeffs, main_out, params, dev, card)
+    t0 = _phase_seconds("slab8", t0)
+    branch_fixtures_phase(dev, card)
+    _phase_seconds("branch_fixtures", t0)
 
 
 def luma_stack(streams: list[bytes], dev) -> torch.Tensor:
@@ -2186,6 +2393,8 @@ def main() -> int:
         app_io, params, card)
     # 36.-38. the measurement harness
     harness_phases(data, main_out, dev, card)
+    # 39.-41. blob modes 0-2, the int8 slab upload, the branch streams
+    closing_phases(data, coeffs, main_out, params, dev, card)
 
     # no single PyTorch call computes the fused transcode (library_ms)
     k_ms, k_dev, p_ms, bound, by, dense = times["luma"]

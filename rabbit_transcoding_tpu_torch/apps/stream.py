@@ -24,7 +24,9 @@ checkpoint and batch unit:
 ``--device=cuda`` (the default) raises when there is no GPU.  ``--trace``
 (single stream) decodes each transcoded GOF and writes the encoder-side
 conformance logs (``enc_*``), to be diffed against ``rabbit-decode --trace``
-on the written stream; the reference's link-rate probe is not carried over.
+on the written stream.  At start-up a thread times one host -> device push
+and prints ``link: N MB/s`` to stderr (or why the probe failed); the rate
+steers the int8 AC slab wire format (``video/rbv.py:_slab8_enabled``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import hashlib
 import json
 import os
 import sys
+import threading
 import time
 
 import torch
@@ -50,6 +53,7 @@ from ..transcoder.params import TranscoderParameters
 from ..transcoder.transcoder import Transcoder
 from ..utils.timing import Stopwatch, print_run_footer
 from ..utils.tracing import TraceCategory, Tracer
+from ..video import rbv
 from .common import build_registry, parse_or_help
 
 
@@ -298,6 +302,16 @@ def transcode_streams_sharded(inputs: list[str], outputs: list[str],
     return [s.result() for s in sios]
 
 
+def _probe_link(device: torch.device) -> None:
+    """Print the measured host -> device link rate, or why it failed."""
+    try:
+        rate = rbv.measure_link_rate(device=device)
+    except (RuntimeError, MemoryError) as e:
+        print(f"link probe failed: {e!r}", file=sys.stderr)
+        return
+    print(f"link: {rate:.0f} MB/s", file=sys.stderr)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     params = StreamParams()
@@ -325,6 +339,12 @@ def main(argv=None) -> int:
     if len(outputs) != len(inputs):
         print("error: input/output stream count mismatch", file=sys.stderr)
         return 1
+
+    # measure the host -> device link beside the first GOF's host entropy
+    # work: the timed push doubles as link warm-up and steers the int8 AC
+    # slab wire format on slow links (video/rbv.py note_link_rate)
+    probe = threading.Thread(target=_probe_link, args=(device,), daemon=True)
+    probe.start()
 
     tracer = None
     if params.trace:
@@ -356,6 +376,7 @@ def main(argv=None) -> int:
                        for i, o in zip(inputs, outputs)]
             results = [fu.result() for fu in futures]
     sw.stop()
+    probe.join()
     total_failures = sum(r["failures"] for r in results)
     for r in results:
         print(

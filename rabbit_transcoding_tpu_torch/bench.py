@@ -161,6 +161,13 @@ def main(argv=None) -> int:
         f"({len(data) * 8 / frames / 30:.0f} kbit/s @30fps); "
         f"setup {time.perf_counter() - t_setup:.1f}s")
 
+    # one timed host -> device push: it warms the link before the timed
+    # windows and steers the int8 AC slab wire format (rbv._slab8_enabled)
+    rate = rbv.measure_link_rate(32 << 20, device)
+    log(f"link {rate:.0f} MB/s"
+        + (" -> int8 AC slab uploads ON"
+           if rate < rbv._SLAB8_LINK_THRESHOLD_MBPS else ""))
+
     params = bench_params(mode)
     units = V3CReader().read(data)[0]
     # ONE Transcoder per stream, exactly like the stream app: per-stream

@@ -68,6 +68,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -404,6 +406,95 @@ def stream_coeffs(data: bytes, device=torch.device("cpu")) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Coefficient blobs of modes 0-2: both decoders read them, no encoder writes
+# them (the encoders write mode 3, the frequency slab)
+
+
+def coeff_blob(q: np.ndarray, mode: int, level: int = 6,
+               drop: bool = False) -> bytes:
+    """int16 coefficients (F, nby, nbx, B, B) -> an RBV coefficient blob in
+    the layout ``video/rbv.py:_decode_coeff_blob`` reads for ``mode``:
+
+    * 0: the dense tensor, DC in DPCM over each frame's block raster, zlib
+      (the reference's ``_encode_dense_blob``);
+    * 1: the nonzeros' global flat indices as uint32 deltas and their int16
+      values, each zlib-compressed, behind ``<QII`` (count and the two
+      lengths);
+    * 2: the same per frame: ``<III`` (frames and the two lengths), the
+      per-frame counts as uint32, then frame-local delta indices.
+
+    ``drop`` (modes 1 and 2) appends one nonzero at an index beyond the
+    tensor, which a decoder drops."""
+    q16 = np.ascontiguousarray(q, dtype=np.int16)
+    f, nby, nbx, b, _ = q16.shape
+    if mode == 0:
+        if drop:
+            raise ValueError("a mode-0 blob has no indices to drop")
+        q16 = q16.copy()
+        dc = q16[:, :, :, 0, 0].reshape(f, nby * nbx).astype(np.int32)
+        q16[:, :, :, 0, 0] = np.diff(dc, axis=1, prepend=0).astype(
+            np.int16).reshape(f, nby, nbx)
+        return b"\x00" + zlib.compress(q16.tobytes(), level)
+    per_frame = nby * nbx * b * b
+    if mode == 1:
+        rows = [q16.reshape(-1)]
+    elif mode == 2:
+        rows = list(q16.reshape(f, per_frame))
+    else:
+        raise ValueError(f"no writer for blob mode {mode}")
+    counts, deltas, vals = [], [], []
+    for i, row in enumerate(rows):
+        idx = np.nonzero(row)[0]
+        v = row[idx]
+        if drop and i == len(rows) - 1:
+            idx = np.append(idx, len(row) + 7)
+            v = np.append(v, np.int16(5))
+        counts.append(len(idx))
+        deltas.append(np.diff(idx, prepend=0).astype(np.uint32))
+        vals.append(v.astype(np.int16))
+    zi = zlib.compress(np.concatenate(deltas).tobytes(), level)
+    zv = zlib.compress(np.concatenate(vals).tobytes(), level)
+    if mode == 1:
+        return (b"\x01" + struct.pack("<QII", counts[0], len(zi), len(zv))
+                + zi + zv)
+    return (b"\x02" + struct.pack("<III", f, len(zi), len(zv))
+            + np.asarray(counts, np.uint32).tobytes() + zi + zv)
+
+
+def payload_with_blob_mode(payload: bytes, mode: int,
+                           drop: bool = False) -> bytes:
+    """A lossy RBV payload with every plane's coefficient blob rewritten to
+    ``mode`` (``coeff_blob``); the header and the motion-vector and intra
+    side sections stay as they are."""
+    flags, w, h, _, chroma, f, b, gop, _ = rbv._parse_header(payload)
+    if flags & rbv._LOSSLESS:
+        raise ValueError("a lossless payload has no coefficient blobs")
+    dims = rbv._plane_dims(w, h, ColorFormat(chroma))
+    out = bytearray(payload[:rbv._HEADER.size])
+    for (ph, pw), blob in zip(dims, rbv._iter_blobs(payload, len(dims))):
+        pl = rbv._Plane(blob, flags, f, ph, pw, b, gop, torch.device("cpu"))
+        new = (blob[:len(blob) - len(pl.coeff_blob)]
+               + coeff_blob(pl.q.numpy(), mode, drop=drop))
+        out += struct.pack("<I", len(new)) + new
+    return bytes(out)
+
+
+def with_blob_mode(data: bytes, mode: int, drop: bool = False) -> bytes:
+    """The first GOF of a V3C stream with every lossy RBV video's
+    coefficient blobs rewritten to ``mode`` -> V3C bytes."""
+    reader = V3CReader()
+    context = reader.decode(reader.read(data)[0])
+    atlas = context.atlas(0)
+    for vt, vb in list(atlas.video_bitstreams.items()):
+        if vb.data[:4] != rbv._MAGIC or rbv.probe(vb.data)["lossless"]:
+            continue
+        atlas.set_video_bitstream(VideoBitstream(
+            vt, payload_with_blob_mode(vb.data, mode, drop)))
+    writer = V3CWriter()
+    return writer.write(writer.encode(context))
+
+
+# ---------------------------------------------------------------------------
 # Source clouds (the reference's testdata cloud makers, numpy only)
 
 
@@ -442,6 +533,16 @@ def make_frame(
         255,
     ).astype(np.uint8)
     return PointSet(positions=pos, colors=colors).remove_duplicates()
+
+
+def make_reflective_frame(frame: int = 0, **kwargs) -> PointSet:
+    """``make_frame`` with a reflectance per point, a function of its y
+    coordinate (uint16, up to 59,999): the source of the reflectance
+    fixture."""
+    ps = make_frame(frame, **kwargs)
+    ps.reflectances = ((ps.positions[:, 1].astype(np.uint32) * 31)
+                       % 60000).astype(np.uint16)
+    return ps
 
 
 def _ellipsoid(
@@ -631,6 +732,34 @@ ENCODER_STREAM_DIR = os.path.join(
 # the patch border filter; lossless geometry with EOM and raw points
 ENCODER_STREAMS = ("sphere_default", "scene_lossy_occupancy_pbf",
                    "sphere_eom_lossless")
+# one small stream per encoder branch that the three above do not take
+BRANCH_STREAMS = ("plr", "pixel_interleaving", "projection_45", "lod",
+                  "reflectance", "map_streams", "raw_points")
+
+
+# branch stream -> whether a decoded atlas carries its branch
+BRANCH_CARRIED = {
+    "plr": lambda a: a.asps_list[0].asps_plr_enabled_flag,
+    "pixel_interleaving": lambda a: (
+        a.asps_list[0].asps_pixel_deinterleaving_flag),
+    "projection_45": lambda a: (
+        a.asps_list[0].asps_extended_projection_enabled_flag),
+    "lod": lambda a: any(
+        getattr(p.data, "pdu_lod_enabled_flag", False)
+        for atl in a.atlas_tile_layers for p in atl.data_unit.patches),
+    "reflectance": lambda a: VideoType.ATTRIBUTE_REFL in a.video_bitstreams,
+    "map_streams": lambda a: VideoType.GEOMETRY_D1 in a.video_bitstreams,
+    "raw_points": lambda a: VideoType.GEOMETRY_RAW in a.video_bitstreams,
+}
+
+
+def branch_carried(name: str, data: bytes) -> bool:
+    """Whether the first atlas of the V3C stream ``data`` carries the
+    encoder branch of the branch stream ``name`` (a parameter-set flag, a
+    patch flag or a sub-stream)."""
+    reader = V3CReader()
+    atlas = reader.decode(reader.read(data)[0]).atlas(0)
+    return bool(BRANCH_CARRIED[name](atlas))
 
 
 def _unhex(v):
@@ -641,7 +770,8 @@ def _unhex(v):
 
 def load_encoder_stream(name: str):
     """-> (V3C bytes, the source clouds the encoder was given, the record:
-    ``checksums`` (hex, per decoded frame, the reference decoder's),
+    ``checksums`` (hex, per decoded frame, the reference decoder's; the
+    sources carry reflectances where the stream codes them),
     ``point_counts``, ``encoder_parameters``, and ``metrics_per_frame`` /
     ``metrics_summary`` as ``QualityMetrics`` of the reference's
     ``compute_sequence_metrics`` of its decode against the sources)."""
@@ -655,8 +785,11 @@ def load_encoder_stream(name: str):
     with np.load(base + "_source.npz") as z:
         sources = [
             PointSet(positions=z[f"positions_{i}"].astype(np.int32),
-                     colors=z[f"colors_{i}"])
-            for i in range(len(z.files) // 2)
+                     colors=z[f"colors_{i}"],
+                     reflectances=(z[f"reflectances_{i}"]
+                                   if f"reflectances_{i}" in z.files
+                                   else None))
+            for i in range(sum(k.startswith("positions_") for k in z.files))
         ]
 
     def metrics(d):

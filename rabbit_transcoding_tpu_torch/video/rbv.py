@@ -4,8 +4,9 @@ Port of ``rabbit_transcoding_tpu/video/rbv.py``: every payload flag
 (lossless, motion compensation, in-loop deblocking, intra prediction), the
 encoder's coefficient threshold and MC search weights, ``encode``,
 ``decode``, ``requantize`` and every branch of ``transcode_payload``.  The
-payload format is the reference's (container v2, blob mode 3): both packages
-read each other's streams, and on the CPU they write the same bytes.
+payload format is the reference's (container v2): both packages read each
+other's streams (coefficient blob modes 0-3; the encoders write mode 3), and
+on the CPU they write the same bytes.
 
 * Host: entropy coding of the zigzag frequency slab through the port's
   copy of the ``native`` rANS library (the ``R``/``B``/``Z`` size race) and zlib, and
@@ -23,7 +24,9 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import functools
+import os
 import struct
+import time
 import zlib
 
 import numpy as np
@@ -147,8 +150,10 @@ def _encode_coeff_blob(q: torch.Tensor, level: int = 6) -> bytes:
     candidates: list[bytes] = []
     starts = _band_plan(kmax)
     # 'B': per-frequency-band rANS contexts; its extra tables lose on small
-    # slabs, so it races only above 64 KiB
-    if len(starts) > 1 and slab.nbytes > 64 << 10:
+    # slabs, so it races only above 64 KiB.  RBV_BANDS=0 takes it out of the
+    # race, as in the reference.
+    if (len(starts) > 1 and slab.nbytes > 64 << 10
+            and os.environ.get("RBV_BANDS", "1") != "0"):
         segs = _band_segments(f, kmax, nby * nbx, starts)
         rb = native.compress_i16_bands(slab, segs, len(starts))
         bandhdr = bytes([len(starts)]) + b"".join(
@@ -162,15 +167,132 @@ def _encode_coeff_blob(q: torch.Tensor, level: int = 6) -> bytes:
     return min(candidates, key=len)
 
 
+def _densify(idx: np.ndarray, vals: np.ndarray, shape: tuple,
+             device) -> torch.Tensor:
+    """Scatter ``vals`` (int16) to the flat indices ``idx`` of a zero int16
+    tensor of ``shape`` on ``device``.  Indices outside the tensor are
+    dropped, as the reference's ``mode="drop"`` scatter drops them."""
+    n = int(np.prod(shape))
+    idx_t = torch.from_numpy(idx.astype(np.int64)).to(device)
+    vals_t = torch.from_numpy(np.array(vals, np.int16)).to(device)
+    keep = (idx_t >= 0) & (idx_t < n)
+    flat = torch.zeros(n, dtype=torch.int16, device=device)
+    flat[idx_t[keep]] = vals_t[keep]
+    return flat.reshape(shape)
+
+
+# --- int8 slab upload (the env RBV_SLAB8, else a measured slow link) --------
+# Quantised AC coefficients almost always fit int8, so the AC rows of the
+# slab can cross the host -> device link as int8 (half the bytes) with the DC
+# row kept int16; the device widens.  The entropy bitstream is unchanged:
+# int8 is only a wire format.  It pays only on slow links, so it turns on
+# below a measured rate (an H100 over PCIe measures GB/s: off).
+_LINK_RATE_MBPS: float | None = None
+_SLAB8_LINK_THRESHOLD_MBPS = 100.0
+
+
+def note_link_rate(mbps: float) -> None:
+    """Record a measured host -> device link rate (MB/s) to steer the int8
+    wire format.  Callers: the bench twin's setup, the stream app's
+    start-up probe."""
+    global _LINK_RATE_MBPS
+    _LINK_RATE_MBPS = float(mbps)
+
+
+def measure_link_rate(nbytes: int = 32 << 20,
+                      device: torch.device | str = "cuda") -> float:
+    """Time one host -> device push of ``nbytes`` (a pageable int16 buffer),
+    closed by a synchronize of ``device``, and record the rate (MB/s)."""
+    device = resolve(device)
+    buf = torch.from_numpy(np.zeros(nbytes // 2, np.int16))
+    dst = torch.empty_like(buf, device=device)
+    t0 = time.perf_counter()
+    dst.copy_(buf)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = max(1e-6, time.perf_counter() - t0)
+    rate = nbytes / dt / 1e6
+    note_link_rate(rate)
+    return rate
+
+
+def _slab8_enabled() -> bool:
+    """The int8 AC wire format: ``RBV_SLAB8`` decides when it is set ("1"
+    on, anything else off), else a recorded link rate below the
+    threshold."""
+    env = os.environ.get("RBV_SLAB8")
+    if env is not None:
+        return env == "1"
+    return (_LINK_RATE_MBPS is not None
+            and _LINK_RATE_MBPS < _SLAB8_LINK_THRESHOLD_MBPS)
+
+
+def _from_freq_slab_split(dc: torch.Tensor, ac: torch.Tensor, b: int,
+                          kmax: int) -> torch.Tensor:
+    """The DC row (F, nby, nbx) int16 and the AC rows (F, kmax-1, nby, nbx)
+    int8, both on the device, widened there -> dense (F, nby, nbx, B, B)
+    int16."""
+    slab = torch.cat([dc[:, None].to(torch.int16), ac.to(torch.int16)],
+                     dim=1)
+    return _from_freq_slab(slab, b, kmax)
+
+
 def _decode_coeff_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
                        device) -> torch.Tensor:
-    """Mode-3 entropy blob -> int16 coefficients (F, nby, nbx, B, B) on
-    ``device``.  Modes 0-2 predate the frequency slab and no encoder of
-    either package writes them."""
+    """Entropy blob -> int16 coefficients (F, nby, nbx, B, B) on ``device``.
+    Mode 3 is the frequency slab the encoders write; modes 2 (per-frame
+    sparse), 1 (global sparse) and 0 (dense zlib) are read as the reference
+    reads them."""
+    shape = (f, nby, nbx, b, b)
     mode = blob[0]
-    if mode != 3:
-        raise ValueError(f"RBV coefficient blob mode {mode} is not supported "
-                         f"(only mode 3 is written)")
+    if mode == 3:
+        return _decode_slab_blob(blob, f, nby, nbx, b, device)
+    if mode == 2:
+        nf, zi_len, zv_len = struct.unpack_from("<III", blob, 1)
+        off = 1 + 12
+        counts = np.frombuffer(blob[off:off + 4 * nf], np.uint32)
+        off += 4 * nf
+        deltas = np.frombuffer(zlib.decompress(blob[off:off + zi_len]),
+                               np.uint32)
+        vals = np.frombuffer(
+            zlib.decompress(blob[off + zi_len:off + zi_len + zv_len]),
+            np.int16)
+        # frame-local delta indices -> global flat indices, wrapped to
+        # uint32 as the reference's index array is
+        per_frame = nby * nbx * b * b
+        idx = np.empty(len(deltas), np.int64)
+        pos = 0
+        for fi in range(nf):
+            c = int(counts[fi])
+            idx[pos:pos + c] = (np.cumsum(deltas[pos:pos + c].astype(np.int64))
+                                + fi * per_frame)
+            pos += c
+        return _densify(idx.astype(np.uint32), vals, shape, device)
+    if mode == 1:
+        _, zi_len, zv_len = struct.unpack_from("<QII", blob, 1)
+        off = 1 + 16
+        deltas = np.frombuffer(zlib.decompress(blob[off:off + zi_len]),
+                               np.uint32)
+        vals = np.frombuffer(
+            zlib.decompress(blob[off + zi_len:off + zi_len + zv_len]),
+            np.int16)
+        idx = np.cumsum(deltas.astype(np.uint64)).astype(np.uint32)
+        return _densify(idx, vals, shape, device)
+    if mode == 0:
+        q16 = np.frombuffer(zlib.decompress(blob[1:]), np.int16).reshape(
+            shape).copy()
+        dcd = q16[:, :, :, 0, 0].reshape(f, nby * nbx).astype(np.int32)
+        q16[:, :, :, 0, 0] = np.cumsum(dcd, axis=1).reshape(
+            f, nby, nbx).astype(np.int16)
+        return torch.from_numpy(q16).to(device)
+    raise ValueError(f"unknown RBV coefficient blob mode {mode}")
+
+
+def _decode_slab_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
+                      device) -> torch.Tensor:
+    """A mode-3 blob: the zigzag slab [0, kmax) of every block, DC in DPCM
+    over each frame's block raster, entropy-coded by the backend its tag
+    names."""
     (kmax,) = struct.unpack_from("<H", blob, 1)
     if kmax == 0:
         return torch.zeros((f, nby, nbx, b, b), dtype=torch.int16,
@@ -191,6 +313,13 @@ def _decode_coeff_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
     slab = slab.reshape(f, kmax, nby, nbx)
     dcd = slab[:, 0].reshape(f, nby * nbx).astype(np.int32)
     slab[:, 0] = np.cumsum(dcd, axis=1).reshape(f, nby, nbx).astype(np.int16)
+    if kmax > 1 and _slab8_enabled():
+        ac = slab[:, 1:]
+        # coefficients are clipped to +-32767 upstream, so abs() is exact
+        if np.abs(ac).max(initial=0) <= 127:
+            return _from_freq_slab_split(
+                torch.from_numpy(slab[:, 0].copy()).to(device),
+                torch.from_numpy(ac.astype(np.int8)).to(device), b, kmax)
     return _from_freq_slab(torch.from_numpy(slab).to(device), b, kmax)
 
 

@@ -19,7 +19,7 @@ from rabbit_transcoding_tpu_torch.bitstream.sei import (
     SeiGeometrySmoothing,
     SeiOccupancySynthesis,
 )
-from rabbit_transcoding_tpu_torch.utils.enums import VideoType
+from rabbit_transcoding_tpu_torch.testdata import BRANCH_CARRIED
 
 from test_e2e_codec import make_sphere_cloud
 from test_torch_decoder import assert_clouds_equal, decode_port, decode_ref
@@ -117,22 +117,12 @@ def _has_sei(atlas, cls) -> bool:
                + atlas.seis_suffix)
 
 
-# what each stream must carry for its test to mean what its name says
+# what each stream must carry for its test to mean what its name says (the
+# branch streams' predicates are the committed branch fixtures')
 _CARRIES = {
+    **BRANCH_CARRIED,
     "lossy_occupancy_pbf": lambda a: _has_sei(a, SeiOccupancySynthesis),
-    "plr": lambda a: a.asps_list[0].asps_plr_enabled_flag,
-    "pixel_interleaving": lambda a: (
-        a.asps_list[0].asps_pixel_deinterleaving_flag),
-    "raw_points": lambda a: VideoType.GEOMETRY_RAW in a.video_bitstreams,
     "eom": lambda a: a.asps_list[0].asps_eom_patch_enabled_flag,
-    "projection_45": lambda a: (
-        a.asps_list[0].asps_extended_projection_enabled_flag),
-    "lod": lambda a: any(
-        p.data.pdu_lod_enabled_flag for atl in a.atlas_tile_layers
-        for p in atl.data_unit.patches
-        if hasattr(p.data, "pdu_lod_enabled_flag")),
-    "reflectance": lambda a: VideoType.ATTRIBUTE_REFL in a.video_bitstreams,
-    "map_streams": lambda a: VideoType.GEOMETRY_D1 in a.video_bitstreams,
     "smoothing_gated_colour": lambda a: (
         _has_sei(a, SeiGeometrySmoothing)
         and _has_sei(a, SeiAttributeSmoothing)),

@@ -172,8 +172,13 @@ def test_decode_coeff_blob_of_reference_backends(backend):
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_decode_coeff_blob_rejects_old_modes(mode):
-    with pytest.raises(ValueError):
-        rbv._decode_coeff_blob(bytes([mode]) + b"\0" * 16, 1, 1, 1, 16, CPU)
+    """Modes 0-2 are read (``test_torch_blob_modes.py``); a blob of one of
+    them whose body is no zlib stream raises in both packages alike."""
+    blob = bytes([mode]) + b"\0" * 16
+    with pytest.raises(zlib.error):
+        ref._decode_coeff_blob(blob, 1, 1, 1, 16)
+    with pytest.raises(zlib.error):
+        rbv._decode_coeff_blob(blob, 1, 1, 1, 16, CPU)
 
 
 # --- encode / decode / transcode_payload -------------------------------------

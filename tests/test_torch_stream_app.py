@@ -6,6 +6,7 @@ app reads and writes files."""
 
 import json
 import os
+import re
 
 import pytest
 import torch
@@ -211,11 +212,16 @@ def test_sharded_failure_containment(inputs, tmp_path, capsys):
 
 def test_main_sharded_cli(inputs, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
+    # the start-up link probe records its rate; restored after the test
+    monkeypatch.setattr(app.rbv, "_LINK_RATE_MBPS", None)
     rc = app.main([f"--compressedStreamPath={inputs['a']},{inputs['b']}",
                    "--outStreamPath=o.bin", "--sharded=1", "--device=cpu",
                    "--geometryQP=28", "--attributeQP=38"])
     assert rc == 0
-    assert "0 batched-round failures" in capsys.readouterr().out
+    captured = capsys.readouterr()
+    assert "0 batched-round failures" in captured.out
+    # as the JAX app prints it
+    assert re.search(r"^link: \d+ MB/s$", captured.err, re.M)
     for i, key in enumerate(("a", "b")):
         assert _read(tmp_path / f"o_{i}.bin") == _reference(
             inputs[key], tmp_path, key, app.StreamParams(**QPS))

@@ -1,14 +1,20 @@
 """Write the encoder-stream fixtures of the PyTorch port's tests and of
 ``chip_smoke.py`` into ``tests/fixtures_torch/``.
 
-The port has no encoder, and the machine with the GPU has no JAX.  So the JAX
-package's V-PCC encoder writes a few small V3C streams here, on the CPU, and
-they are committed: the port decodes, transcodes and measures them on the
-card.  Beside each stream ``<name>.bin`` lie
+The machine with the GPU has no JAX.  So the JAX package's V-PCC encoder
+writes a few small V3C streams here, on the CPU, and they are committed: the
+port encodes them again from their sources, and decodes, transcodes and
+measures them, on the card.  Three carry the encoder's defaults and the
+decoder's lossy-occupancy and EOM branches (``testdata.ENCODER_STREAMS``);
+seven more carry one encoder branch each (``testdata.BRANCH_STREAMS``: point
+local reconstruction, pixel interleaving, 45-degree projection, level of
+detail, reflectance, per-map streams, lossless raw points).  Beside each
+stream ``<name>.bin`` lie
 
 * ``<name>_source.npz``: the source clouds the encoder was given, frame by
-  frame (``positions_<i>`` uint16, ``colors_<i>`` uint8), so that nobody has
-  to rebuild them from ``sin``/``cos`` on another numpy build;
+  frame (``positions_<i>`` uint16, ``colors_<i>`` uint8, and
+  ``reflectances_<i>`` uint16 where the clouds carry them), so that nobody
+  has to rebuild them from ``sin``/``cos`` on another numpy build;
 * ``<name>.json``: the encoder parameters that differ from the defaults, the
   reference decoder's per-frame checksums (``PointSet.compute_checksum``),
   its point counts, and the reference's ``compute_sequence_metrics`` of the
@@ -17,10 +23,14 @@ card.  Beside each stream ``<name>.bin`` lie
 
 Run it from the root of the repo with the JAX package on the CPU:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--only NAME]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--only NAME ...]
 
-``tests/test_torch_fill.py`` re-encodes the first stream and holds
-the bytes against the committed file, so a stale fixture fails a test.
+``tests/test_torch_fill.py`` re-encodes the first stream with the JAX
+encoder and ``tests/test_torch_encoder.py`` and
+``tests/test_torch_branch_fixtures.py`` encode every stream with the port,
+each holding the bytes against the committed file, so a stale fixture fails
+a test.  The cloud makers are the port's ``testdata`` copies of the JAX
+package's (the same arrays), with ``make_reflective_frame`` the port's own.
 """
 
 from __future__ import annotations
@@ -36,8 +46,31 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_DIR = os.path.join(ROOT, "tests", "fixtures_torch")
 
-# name -> (cloud maker in rabbit_transcoding_tpu.testdata, its arguments per
-# frame, encoder parameters that differ from EncoderParameters' defaults)
+# the branch streams' common parameters (tests/test_torch_decoder_streams.py)
+# and their cloud: a 7-bit sphere of ~5,300 points
+_BRANCH_BASE = dict(minimumImageWidth=256, minimumImageHeight=64,
+                    geometryQP=8, attributeQP=16, occupancyPrecision=2,
+                    frameCount=1, groupOfFramesSize=1)
+_BRANCH_CLOUD = dict(n=6000, radius=40.0, center=64.0, vox_bits=7)
+_BRANCHES = {
+    "plr": dict(pointLocalReconstruction=True, mapCountMinus1=0,
+                flagGeometrySmoothing=False, constrainedPack=False),
+    "pixel_interleaving": dict(singleMapPixelInterleaving=True,
+                               mapCountMinus1=1),
+    "projection_45": dict(additionalProjectionPlaneMode=3,
+                          flagGeometrySmoothing=False, constrainedPack=False,
+                          rawPointsPatch=False),
+    "lod": dict(levelOfDetailX=2, levelOfDetailY=2, rawPointsPatch=False),
+    "reflectance": dict(),
+    "map_streams": dict(multipleStreams=True, absoluteD1=False,
+                        absoluteT1=False),
+    "raw_points": dict(rawPointsPatch=True, losslessGeo=True,
+                       flagGeometrySmoothing=False),
+}
+
+# name -> (cloud maker in rabbit_transcoding_tpu_torch.testdata, its
+# arguments per frame, encoder parameters that differ from
+# EncoderParameters' defaults)
 FIXTURES = {
     # lossy RBV with MC and intra, as the encoder codes by default
     "sphere_default": ("make_frame", dict(n=40000),
@@ -56,17 +89,23 @@ FIXTURES = {
         dict(frameCount=1, groupOfFramesSize=1, minimumImageWidth=256,
              enhancedOccupancyMapCode=True, losslessGeo=True,
              occupancyPrecision=1, flagGeometrySmoothing=False)),
+    **{name: ("make_reflective_frame" if name == "reflectance"
+              else "make_frame", _BRANCH_CLOUD, {**_BRANCH_BASE, **enc})
+       for name, enc in _BRANCHES.items()},
 }
 
 
 def source_clouds(name: str):
-    """The clouds the encoder is given for fixture ``name``."""
+    """The clouds the JAX encoder is given for fixture ``name``."""
     sys.path.insert(0, ROOT)
-    from rabbit_transcoding_tpu import testdata
+    from rabbit_transcoding_tpu.core.pointset import PointSet
+    from rabbit_transcoding_tpu_torch import testdata
 
     maker, kwargs, enc = FIXTURES[name]
-    return [getattr(testdata, maker)(f, **kwargs)
-            for f in range(enc["frameCount"])]
+    clouds = [getattr(testdata, maker)(f, **kwargs)
+              for f in range(enc["frameCount"])]
+    return [PointSet(positions=c.positions, colors=c.colors,
+                     reflectances=c.reflectances) for c in clouds]
 
 
 def encode(name: str) -> bytes:
@@ -118,6 +157,8 @@ def write_fixture(name: str) -> None:
         assert ps.positions.min() >= 0 and ps.positions.max() < 65536
         arrays[f"positions_{i}"] = ps.positions.astype(np.uint16)
         arrays[f"colors_{i}"] = ps.colors.astype(np.uint8)
+        if ps.reflectances is not None:
+            arrays[f"reflectances_{i}"] = ps.reflectances.astype(np.uint16)
     np.savez_compressed(os.path.join(OUT_DIR, name + "_source.npz"), **arrays)
     record = {
         "cloud_maker": FIXTURES[name][0],
@@ -140,10 +181,11 @@ def write_fixture(name: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=sorted(FIXTURES), default=None)
+    ap.add_argument("--only", nargs="+", choices=sorted(FIXTURES),
+                    default=sorted(FIXTURES), metavar="NAME")
     args = ap.parse_args(argv)
     for name in FIXTURES:
-        if args.only in (None, name):
+        if name in args.only:
             write_fixture(name)
     return 0
 
