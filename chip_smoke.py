@@ -11,10 +11,11 @@ upload, and one stream per encoder branch.
 Phases, one result line each; any failure raises and the exit code is not 0:
 
 1. environment: the card's name and power limit, torch and nvcc versions,
-   and the port's native library with its three sources (rANS, the grid
-   KNN, the spanning-tree orientation; built with g++: without it the
-   entropy coder would fall back to zlib and the KNN to a KD-tree, and
-   change what is measured);
+   and the port's native library with its four sources (rANS, the grid
+   KNN, the spanning-tree orientation, the batched LAPACK ``ssyevd`` loop;
+   built with g++: without it the entropy coder would fall back to zlib,
+   the KNN to a KD-tree and the ``eigh`` to a slower loop, and change what
+   is measured);
 2. build: nvcc compiles the port's CUDA sources (``csrc/*.cu``); ptxas's
    registers and spills per kernel (no spills allowed);
 3. kernel check: the fused transcode kernel against its plain PyTorch version
@@ -81,9 +82,16 @@ Phases, one result line each; any failure raises and the exit code is not 0:
 18. normals: ``compute_normals`` and ``generate_normals`` on a dense cloud of
     a real frame's size (``make_dense_frame``), on the card and on the CPU:
     seconds of each, of the host KNN, the device's covariance, the host's
-    ``eigh`` (the host decomposes on every device, so that the card's
-    normals are the CPU's) and spanning tree; covariances and oriented
-    normals equal bit for bit between card and CPU;
+    ``eigh`` (the host's LAPACK ``ssyevd``, the JAX package's, on every
+    device, so that the card's normals are the CPU's; timed in turns with
+    ``torch.linalg.eigh`` on the same matrices) and spanning tree;
+    covariances and oriented normals equal bit for bit between card and
+    CPU; then frame 0 of the ``scene_lossy_occupancy_pbf`` source on the
+    card against the JAX package's normals and eigenvalues committed in
+    ``tests/fixtures_torch/normals_ref.npz``: the shares bit-equal printed
+    (this host's scipy LAPACK may pick other kernels than the one that
+    wrote the fixture), the normals within ``REF_NORMAL_ANGLE`` and the
+    eigenvalues within ``REF_EIGENVALUE_REL`` of the largest;
 19. encoder streams: each committed stream that the V-PCC encoder wrote
     (``tests/fixtures_torch/``) decoded on the card: the reference decoder's
     checksums (committed beside the stream) and the ``device=cpu`` decode's;
@@ -288,9 +296,17 @@ NORMALS_POINTS = 800_000
 # 1e-3 rad apart may be at most this (both take the host's eigh
 # and are equal; a flipped component of the spanning tree would show here)
 MAX_NORMAL_SHARE = 1e-4
+# the card's normals of the committed scene frame against the JAX package's
+# (``tests/fixtures_torch/normals_ref.npz``): largest angle in rad, and the
+# eigenvalues' largest difference relative to the largest eigenvalue (the
+# tolerances of tests/test_torch_normals.py; equal bit for bit on a host
+# whose LAPACK kernels are those of the host that wrote the fixture)
+REF_NORMAL_ANGLE = 1e-5
+REF_EIGENVALUE_REL = 1e-4
 # D2 PSNRs with the normals computed on the card against the committed
 # reference values (normals by the reference's eigh on the CPU), in dB
-# (measured: at most 3.9e-7 dB)
+# (measured: at most 3.9e-7 dB while the port's eigh was torch's; equal
+# where the host's LAPACK kernels are those that wrote the fixtures)
 D2_BOUND_DB = 1e-5
 # the same of ``d2_mse`` and ``d2_hausdorff``, relative to the reference value
 D2_BOUND_REL = 1e-6
@@ -845,6 +861,13 @@ def normals_phase(dev, card) -> None:
 
     cov_g, cov_s = _timed(lambda: cov(tp_g, ti_g), dev)
     _, eigh_s = _timed(lambda: nm._eigh(cov_g), dev)
+    # the same decompositions by torch's CPU solver (what _eigh called
+    # until it called LAPACK's ssyevd), in turns with _eigh; timed only
+    turns = {"ssyevd": [], "torch_eigh": []}
+    for which in ("torch_eigh", "ssyevd", "ssyevd", "torch_eigh"):
+        solve = (nm._eigh if which == "ssyevd" else
+                 lambda c: [x.to(dev) for x in torch.linalg.eigh(c.cpu())])
+        turns[which].append(round(_timed(lambda: solve(cov_g), dev)[1], 4))
     pca_g, pca_s = _timed(lambda: nm._pca_normals(tp_g, ti_g), dev)
     cov_c, cov_cpu_s = _timed(lambda: cov(tp, ti))
     _, eigh_cpu_s = _timed(lambda: nm._eigh(cov_c))
@@ -864,7 +887,8 @@ def normals_phase(dev, card) -> None:
     mg = testdata.normals_mismatch(gen_g["normals"], gen_c["normals"])
     phase("normals", points=len(pts), make_s=f"{make_s:.3f}",
           host_knn_s=f"{knn_s:.3f}", device_cov_s=f"{cov_s:.4f}",
-          host_eigh_s=f"{eigh_s:.4f}", device_pca_s=f"{pca_s:.4f}",
+          host_eigh_s=f"{eigh_s:.4f}", eigh_turns_s=json.dumps(turns),
+          device_pca_s=f"{pca_s:.4f}",
           cpu_cov_s=f"{cov_cpu_s:.3f}", cpu_eigh_s=f"{eigh_cpu_s:.3f}",
           host_tree_s=f"{tree_s:.3f}", covariances_equal=cov_equal,
           compute_normals_took_tree=took_tree,
@@ -886,6 +910,46 @@ def normals_phase(dev, card) -> None:
     for name, mm in (("compute_normals", m), ("generate_normals", mg)):
         check(mm["share_beyond_1e-3"] <= MAX_NORMAL_SHARE,
               f"{name}: card vs CPU normals {mm}")
+    normals_against_jax(dev, card)
+
+
+def normals_against_jax(dev, card) -> None:
+    """18b. The committed scene frame's normals and eigenvalues, computed on
+    the card, against the JAX package's (``normals_ref.npz``)."""
+    check(native_sources_built(), "normals: the native ssyevd loop is "
+                                  "missing")
+    with np.load(os.path.join(testdata.ENCODER_STREAM_DIR,
+                              "normals_ref.npz")) as z:
+        want_n, want_vals = z["normals"], z["eigenvalues"]
+    _, sources, _ = testdata.load_encoder_stream("scene_lossy_occupancy_pbf")
+    pts = sources[0].positions.astype(np.float32)
+    (got_n, _), card_s = _timed(lambda: nm.compute_normals(pts, device=dev))
+    idx, _ = nm.knn_graph(pts, 16)
+    tp = torch.from_numpy(pts).to(dev)
+    _, vals, _, _ = nm._pca_normals_full(
+        tp, torch.from_numpy(idx).long().to(dev),
+        torch.ones(idx.shape, dtype=torch.bool, device=dev),
+        torch.zeros(3, device=dev))
+    got_vals = vals.cpu().numpy()
+    m = testdata.normals_mismatch(got_n, want_n)
+    normals_equal = (got_n == want_n).all(axis=1)
+    vals_equal = (got_vals == want_vals).all(axis=1)
+    vals_rel = float(np.abs(got_vals - want_vals).max()
+                     / np.abs(want_vals).max())
+    phase("normals_vs_jax", points=len(pts),
+          compute_normals_card_s=f"{card_s:.3f}",
+          normals_bit_equal_share=f"{normals_equal.mean():.6f}",
+          normals_not_bit_equal=int((~normals_equal).sum()),
+          eigenvalues_bit_equal_share=f"{vals_equal.mean():.6f}",
+          eigenvalues_largest_rel_diff=f"{vals_rel:.3e}",
+          against_fixture=json.dumps(m), card=repr(card))
+    check(got_n.shape == want_n.shape and got_vals.shape == want_vals.shape,
+          "normals: the fixture's shapes differ")
+    check(m["max_angle"] <= REF_NORMAL_ANGLE,
+          f"normals: card vs the JAX fixture {m}")
+    check(vals_rel <= REF_EIGENVALUE_REL,
+          f"normals: eigenvalues vs the JAX fixture, {vals_rel:.3e} of the "
+          "largest")
 
 
 def encoder_stream_phase(dev, card) -> dict:
@@ -2161,8 +2225,9 @@ def luma_stack(streams: list[bytes], dev) -> torch.Tensor:
 
 
 def native_sources_built() -> bool:
-    """The native library answers for all three of its sources: the rANS
-    coder, the grid KNN and the spanning-tree orientation."""
+    """The native library answers for all four of its sources: the rANS
+    coder, the grid KNN, the spanning-tree orientation and the batched
+    ``ssyevd`` loop."""
     if not native.available():
         return False
     try:
@@ -2173,9 +2238,12 @@ def native_sources_built() -> bool:
             normals, pts, idx, np.ones(idx.shape, np.uint8),
             np.zeros(3, np.float32))
         blob = native.compress_i16(np.arange(64, dtype=np.int16))
+        w, v = native.ssyevd3_batch(np.diag(np.float32([3, 1, 2]))[None])
     except (RuntimeError, AttributeError):
         return False
-    return bool(d2[0, 0] == 0 and comps >= 1 and blob)
+    return bool(d2[0, 0] == 0 and comps >= 1 and blob
+                and np.array_equal(w, [[1, 2, 3]])
+                and np.array_equal(np.abs(v[0]), np.eye(3)[:, [1, 2, 0]]))
 
 
 def main() -> int:
@@ -2196,10 +2264,11 @@ def main() -> int:
           cuda=torch.version.cuda, nvcc=repr(nvcc_version),
           devices=torch.cuda.device_count(),
           native_rans=native.available(),
-          native_knn_and_tree=native_sources_built())
+          native_knn_tree_and_ssyevd=native_sources_built())
     check(native.available(), "the native rANS library did not build")
     check(native_sources_built(),
-          "the native library lacks the grid KNN or the tree orientation")
+          "the native library lacks the grid KNN, the tree orientation or "
+          "the ssyevd loop")
 
     # 2. build from the checkout's sources
     seconds = _build.build(force=True)

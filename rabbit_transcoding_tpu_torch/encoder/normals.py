@@ -17,10 +17,11 @@ centroid) followed by KNN sign-consistency voting sweeps on the device.
 Floats.  The covariances are reproduced: the reference's compiled CPU code
 adds the k neighbours in index order and accumulates the 3x3 products in one
 fused multiply-add chain over k (``_cov`` does the same, rounding once per
-step).  The eigenvectors are not: the host's ``torch.linalg.eigh`` and
-the reference's ``eigh`` agree to float32 precision where the smallest
-eigenvalue is simple, and pick different vectors where it is repeated; the
-orientation fixes the sign afterwards.
+step).  So are the eigen-decompositions: the reference's CPU ``eigh``
+(``rabbit_transcoding_tpu/encoder/normals.py:64,224``) is LAPACK ``ssyevd``
+from scipy's ``cython_lapack``, and ``_eigh`` calls that routine with the
+same arguments, so values and vectors, repeated eigenvalues included, are
+the reference's bit for bit on the same host.
 """
 
 from __future__ import annotations
@@ -89,16 +90,46 @@ def _cov(centered: torch.Tensor) -> torch.Tensor:
 
 
 def _eigh(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``torch.linalg.eigh`` of (N, 3, 3) matrices -> (ascending values,
-    vectors) on ``cov``'s device, decomposed by the host's LAPACK whatever
-    the device, so that the card's normals are the CPU's bit for bit.  The
-    segmentation's argmax over normal . direction breaks exact ties (a
-    normal with n_x = -n_y) by the vectors' last bits: cuSOLVER's vectors
-    (Jacobi, more accurate) differ from float32 LAPACK's by up to 9.1e-4 rad
-    and moved 3 points of a committed encoder stream's scene to another
-    projection plane, and so changed its bytes."""
-    vals, vecs = torch.linalg.eigh(cov.cpu())
-    return vals.to(cov.device), vecs.to(cov.device)
+    """``jnp.linalg.eigh`` of (N, 3, 3) matrices -> (ascending values,
+    vectors, ``vecs[i, :, j]`` the j-th) on ``cov``'s device, bit for bit.
+
+    The reference's CPU ``eigh`` symmetrises, ``(a + a^T) / 2``, and calls
+    LAPACK ``ssyevd`` (jobz 'V', uplo 'L') per matrix through scipy's
+    ``cython_lapack``; this does the same on the host whatever the device,
+    in one native loop (``native.ssyevd3_batch``) or, without the native
+    library, a loop over ``scipy.linalg.lapack.ssyevd``: the same routine,
+    the same bits, slower.  A matrix that ``ssyevd`` fails on gets NaN
+    values and vectors in both, as in the reference.  Never another solver:
+    the segmentation's argmax over normal . direction breaks exact ties (a
+    normal with n_x = -n_y) by the vectors' last bits; cuSOLVER's vectors
+    moved 3 points of a committed encoder stream's scene to another
+    projection plane, and ``torch.linalg.eigh``'s on the CPU 2 of 10,926
+    points of ``make_scene_frame``."""
+    from .. import native
+
+    c = cov.cpu().numpy().astype(np.float32, copy=False)
+    c = (c + c.transpose(0, 2, 1)) / np.float32(2)
+    try:
+        vals, vecs = native.ssyevd3_batch(c)
+    except RuntimeError:
+        vals, vecs = _ssyevd_loop(c)
+    return (torch.from_numpy(vals).to(cov.device),
+            torch.from_numpy(vecs).to(cov.device))
+
+
+def _ssyevd_loop(cov: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``native.ssyevd3_batch`` without the native library: scipy's
+    ``ssyevd`` per matrix."""
+    from scipy.linalg import lapack
+
+    vals = np.empty((len(cov), 3), np.float32)
+    vecs = np.empty((len(cov), 3, 3), np.float32)
+    for i, a in enumerate(cov):
+        w, v, info = lapack.ssyevd(a, compute_v=1, lower=1)
+        if info != 0:
+            w, v = np.nan, np.nan
+        vals[i], vecs[i] = w, v
+    return vals, vecs
 
 
 def _pca_normals(points: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
@@ -279,7 +310,10 @@ def _smooth_normals(
 ) -> torch.Tensor:
     """smoothNormals analog (PCCNormalsGenerator.cpp:533-573): per iteration
     each normal blends with the sign-aligned sum of its radius-gated
-    neighbors: n <- normalize(w0*n + w2*normalize(sum sign*nbr))."""
+    neighbors: n <- normalize(w0*n + w2*normalize(sum sign*nbr)).  The
+    reference's bits: the k neighbours added in index order, and the blend
+    one fused multiply-add, ``fma(w0, n, w2*acc)``, as its compiled CPU
+    code computes them."""
     w2 = torch.tensor(float(weight), dtype=normals.dtype,
                       device=normals.device)
     w0 = 1.0 - w2
@@ -292,8 +326,8 @@ def _smooth_normals(
         nbr_n = n[nbr_idx]                                # (N, k, 3)
         sign = torch.sign((nbr_n * n[:, None, :]).sum(dim=2))[..., None]
         sign = torch.where(sign == 0, torch.ones_like(sign), sign)
-        acc = _unit((nbr_n * sign * ok).sum(dim=1))
-        n = _unit(w0 * n + w2 * acc)
+        acc = _unit(_sum_k(nbr_n * sign * ok))
+        n = _unit(fma(w0, n, w2 * acc))
     return n
 
 

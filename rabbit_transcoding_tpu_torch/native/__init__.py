@@ -1,7 +1,8 @@
 """Native (C++) runtime components, loaded via ctypes: the reference's
 ``native`` package. ``rans.cpp`` is the entropy coder (RLE0 + order-0 rANS,
 plain and context-banded), ``knn_grid.cpp`` the exact KNN over integer voxel
-clouds, ``normals_tree.cpp`` the spanning-tree orientation of normals.
+clouds, ``normals_tree.cpp`` the spanning-tree orientation of normals,
+``eigh3.cpp`` the batched 3x3 ``ssyevd`` loop of the normals' PCA.
 
 The shared library is built at first use with g++ into ``build/native/`` at
 the root of the checkout (never beside the source); everything degrades to
@@ -19,7 +20,8 @@ import sys
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "rans.cpp"),
          os.path.join(_DIR, "normals_tree.cpp"),
-         os.path.join(_DIR, "knn_grid.cpp")]
+         os.path.join(_DIR, "knn_grid.cpp"),
+         os.path.join(_DIR, "eigh3.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                           "native")
 _LIB = os.path.join(_BUILD_DIR, "librbv_native.so")
@@ -100,6 +102,12 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p,         # nbr_idx, nbr_ok
         ctypes.c_int64, ctypes.c_int64,           # n, k
         ctypes.c_void_p,                          # viewpoint
+    ]
+    lib.rbv_ssyevd3_batch.restype = ctypes.c_int64
+    lib.rbv_ssyevd3_batch.argtypes = [
+        ctypes.c_void_p,                          # ssyevd
+        ctypes.c_void_p, ctypes.c_int64,          # cov, n
+        ctypes.c_void_p, ctypes.c_void_p,         # w, v
     ]
     _lib = lib
     return lib
@@ -261,3 +269,50 @@ def orient_normals_tree(normals, points, nbr_idx, nbr_ok, viewpoint) -> int:
     if rc < 0:
         raise RuntimeError("rbv_orient_normals_tree failed (bad indices?)")
     return int(rc)
+
+
+_ssyevd_ptr = None
+
+
+def ssyevd_pointer() -> int:
+    """Address of scipy's LAPACK ``ssyevd`` (``scipy.linalg.cython_lapack``,
+    the routine jaxlib's CPU ``eigh`` calls), taken once per process."""
+    global _ssyevd_ptr
+    if _ssyevd_ptr is None:
+        from scipy.linalg import cython_lapack
+
+        capsule = cython_lapack.__pyx_capi__["ssyevd"]
+        api = ctypes.pythonapi
+        get_name = ctypes.PYFUNCTYPE(ctypes.c_char_p, ctypes.py_object)(
+            ("PyCapsule_GetName", api))
+        get_pointer = ctypes.PYFUNCTYPE(
+            ctypes.c_void_p, ctypes.py_object, ctypes.c_char_p)(
+            ("PyCapsule_GetPointer", api))
+        _ssyevd_ptr = get_pointer(capsule, get_name(capsule))
+    return _ssyevd_ptr
+
+
+def ssyevd3_batch(cov):
+    """(N, 3, 3) float32 symmetric matrices -> (w (N, 3) ascending, v
+    (N, 3, 3) with ``v[i, :, j]`` the j-th eigenvector), LAPACK ``ssyevd``
+    with jobz 'V' and uplo 'L' per matrix (native/eigh3.cpp): the bits of
+    ``jnp.linalg.eigh`` on the CPU.  A matrix that ssyevd fails on gets NaN
+    values and vectors.  Raises RuntimeError when the native library is
+    unavailable."""
+    import numpy as np
+
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    c = np.ascontiguousarray(cov, np.float32)
+    if c.ndim != 3 or c.shape[1:] != (3, 3):
+        raise ValueError("cov must be (N, 3, 3)")
+    w = np.empty((len(c), 3), np.float32)
+    v = np.empty((len(c), 3, 3), np.float32)
+    rc = lib.rbv_ssyevd3_batch(
+        ssyevd_pointer(), c.ctypes.data_as(ctypes.c_void_p), len(c),
+        w.ctypes.data_as(ctypes.c_void_p), v.ctypes.data_as(ctypes.c_void_p),
+    )
+    if rc < 0:
+        raise RuntimeError("rbv_ssyevd3_batch failed (bad arguments?)")
+    return w, v

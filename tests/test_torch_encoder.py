@@ -13,9 +13,11 @@
 ``encode_both`` is the helper of the knob files
 (``test_torch_encoder_knobs*.py``): one JAX encode and one port encode of
 the same clouds and parameters, the port given the JAX normals frame by
-frame through ``encoder/segment.py:_segmentation_normals`` (the one float
-step the port does not reproduce bit for bit, ROADMAP queue 3 item g.9;
-``test_torch_segment.py`` measures what it moves)."""
+frame through ``encoder/segment.py:_segmentation_normals``.  The port's own
+normals are the JAX normals bit for bit (its ``eigh`` calls the LAPACK
+``ssyevd`` that jaxlib calls, ROADMAP queue 3 item g.9, closed), and
+``test_torch_eigh.py`` encodes knob cases with them; the seam keeps each
+knob case to the encoder's own steps."""
 
 import contextlib
 
@@ -96,12 +98,14 @@ def same_normals():
         segment._segmentation_normals = own_normals
 
 
-def encode_both(params: dict, clouds, port_params: dict | None = None
-                ) -> tuple:
+def encode_both(params: dict, clouds, port_params: dict | None = None,
+                own_normals: bool = False) -> tuple:
     """-> ((JAX bytes, closed-loop checksums), (port bytes, checksums)),
-    the port on the CPU given the JAX normals; ``port_params`` overrides
-    some of ``params`` for the port (its own stand-in binaries)."""
-    with same_normals() as fed:
+    the port on the CPU given the JAX normals, or computing its own with
+    ``own_normals``; ``port_params`` overrides some of ``params`` for the
+    port (its own stand-in binaries)."""
+    seam = contextlib.nullcontext([]) if own_normals else same_normals()
+    with seam as fed:
         ctx, rec = RefEncoder(RefEncoderParameters(**params)).encode(
             RefGroupOfFrames(clouds))
         want = (_write(ref_bitstream.V3CWriter(), ctx),

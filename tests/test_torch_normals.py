@@ -7,11 +7,13 @@ packages.  What is held, and how tightly:
   equal (``test_torch_host_copies.py``);
 * the covariances are reproduced bit for bit (one fused multiply-add chain
   over the k neighbours in index order): tolerance 0;
-* the eigenvectors are not reproducible (two LAPACK builds, and the sign of
-  an eigenvector is free): raw PCA normals are compared with the sign
-  ignored, oriented normals as they are.  The measured mismatch (the share
-  of normals beyond 1e-5 rad and beyond 1e-3 rad, the largest angle) is
-  printed and asserted under the ceilings below.
+* the eigen-decompositions are reproduced too (both call LAPACK ``ssyevd``
+  from scipy's ``cython_lapack``; ``test_torch_eigh.py`` holds them bit for
+  bit, ROADMAP queue 3 item g.9): the ceilings below date from when they
+  were not.  Raw PCA normals are compared with the sign ignored, oriented
+  normals as they are.  The measured mismatch (the share of normals beyond
+  1e-5 rad and beyond 1e-3 rad, the largest angle; measured 0) is printed
+  and asserted under the ceilings.
 """
 
 import numpy as np
@@ -295,8 +297,9 @@ def test_generate_normals_against_the_reference(case):
     keep = np.ones(len(pts), bool)
     if "eigenvalues" in want:
         # few neighbours inside the radius cap: where the two smallest
-        # eigenvalues are (nearly) equal the normal is free, and the two
-        # solvers pick different ones (seen: 0.098 rad at one point)
+        # eigenvalues are (nearly) equal the normal is free, and two
+        # solvers pick different ones (seen: 0.098 rad at one point while
+        # the port used torch's eigh; both now call the same ssyevd)
         vals = want["eigenvalues"]
         keep = (vals[:, 1] - vals[:, 0]) > 1e-2 * np.maximum(vals[:, 2], 1e-6)
         assert keep.mean() > 0.9

@@ -8,10 +8,12 @@ held bit for bit: the reference's compiled CPU code makes the score dot an
 FMA chain in index order and each refinement step one FMA
 (``encoder/segment.py``'s docstring); argmaxes need no tolerance.
 
-With each package's own normals the eigenvectors differ in their last bits
-(ROADMAP queue 3 item g.9), so a point near a tie between two directions can
-take the other one: ``test_ppi_share_with_own_normals`` records that share
-(printed with ``-s``) and holds it under 1%."""
+With each package's own normals the normals are equal bit for bit (the
+port's ``eigh`` calls the LAPACK ``ssyevd`` that jaxlib calls, ROADMAP queue
+3 item g.9, closed), so no point near a tie between two directions takes the
+other one: ``test_ppi_share_with_own_normals`` records the share of points
+whose PPI differs (printed with ``-s``; measured 0) and holds it under 1%,
+and ``test_torch_eigh.py::test_ppi_equal_with_own_normals`` holds it at 0."""
 
 import dataclasses
 
@@ -162,8 +164,9 @@ def test_segmentation_equal_given_the_same_normals(monkeypatch, name):
                                      ("make_scene_frame", 16000)])
 def test_ppi_share_with_own_normals(maker, n):
     """Each package computes its own normals: the share of points whose
-    initial and refined PPI differ, printed with -s (the port's eigenvectors
-    are MKL's, the reference's LAPACK's through jaxlib)."""
+    initial and refined PPI differ, printed with -s (both decompose with
+    scipy's LAPACK ``ssyevd``; the angle printed is arccos of a float32 dot,
+    not 0 for equal unit normals)."""
     points = getattr(ref_testdata, maker)(0, n=n).positions.astype(np.int32)
     params = segment.SegmenterParams()
     k = max(params.nn_normal_estimation,

@@ -25,6 +25,14 @@ Run it from the root of the repo with the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--only NAME ...]
 
+Beside them, ``normals_ref.npz`` holds the JAX package's normals of frame 0
+of ``scene_lossy_occupancy_pbf_source.npz``: ``normals``, what
+``compute_normals`` returns, and ``eigenvalues``, those of
+``_pca_normals_full`` on ``knn_graph(points, 16)`` with no radius cap (what
+``generate_normals`` computes at its defaults).  ``chip_smoke.py`` holds
+the port's, computed on the card, against them (``--only normals_ref``
+writes it alone).
+
 ``tests/test_torch_fill.py`` re-encodes the first stream with the JAX
 encoder and ``tests/test_torch_encoder.py`` and
 ``tests/test_torch_branch_fixtures.py`` encode every stream with the port,
@@ -179,14 +187,42 @@ def write_fixture(name: str) -> None:
           f"Y {summary.color_psnr[0]:.4f} dB")
 
 
+NORMALS_REF = "normals_ref"
+NORMALS_SOURCE = "scene_lossy_occupancy_pbf"
+
+
+def write_normals_ref() -> None:
+    """``normals_ref.npz``: the JAX normals of the source's frame 0."""
+    sys.path.insert(0, ROOT)
+    import jax.numpy as jnp
+
+    from rabbit_transcoding_tpu.encoder import normals
+    from rabbit_transcoding_tpu_torch import testdata
+
+    _, sources, _ = testdata.load_encoder_stream(NORMALS_SOURCE)
+    pts = sources[0].positions.astype(np.float32)
+    got, _ = normals.compute_normals(pts)
+    idx, _ = normals.knn_graph(pts, 16)
+    _, vals, _, _ = normals._pca_normals_full(
+        jnp.asarray(pts), jnp.asarray(idx),
+        jnp.ones(idx.shape, bool), jnp.zeros(3, jnp.float32))
+    np.savez(os.path.join(OUT_DIR, NORMALS_REF + ".npz"),
+             normals=np.asarray(got, np.float32),
+             eigenvalues=np.asarray(vals, np.float32))
+    print(f"{NORMALS_REF}: {len(pts)} points of {NORMALS_SOURCE} frame 0")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", nargs="+", choices=sorted(FIXTURES),
-                    default=sorted(FIXTURES), metavar="NAME")
+    names = sorted(FIXTURES) + [NORMALS_REF]
+    ap.add_argument("--only", nargs="+", choices=names, default=names,
+                    metavar="NAME")
     args = ap.parse_args(argv)
     for name in FIXTURES:
         if name in args.only:
             write_fixture(name)
+    if NORMALS_REF in args.only:
+        write_normals_ref()
     return 0
 
 
