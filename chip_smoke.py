@@ -1128,7 +1128,7 @@ def encode_full_phase(dev, card) -> bytes:
     the stream."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rabbit_transcoding_tpu_torch.ops.events import device_busy_us
+    from rabbit_transcoding_tpu_torch.ops.events import device_busy_s
 
     sources, make_s = _timed(lambda: [
         testdata.make_dense_frame(i, n=ENCODE_POINTS)
@@ -1146,7 +1146,7 @@ def encode_full_phase(dev, card) -> bytes:
             lambda: encode_bytes(sources, params, dev))
     launches = tc.LAUNCHES
     events = prof.key_averages()
-    busy_s = device_busy_us(events) * 1e-6
+    busy_s = device_busy_s(prof)
     top = sorted((e for e in events if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:6]
     clouds, _, decode_s = decode_clouds(data, dev)

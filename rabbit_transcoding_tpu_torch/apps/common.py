@@ -35,20 +35,24 @@ def parse_or_help(reg: OptionRegistry, argv, params, title: str):
 @contextlib.contextmanager
 def profile_to(profile_dir: str, device, name: str):
     """``--profileDir``: a ``torch.profiler`` trace of the block (host
-    operators, and the card's kernels when ``device`` is a CUDA device),
-    written as ``<profile_dir>/<name>.pt.trace.json`` (Chrome trace format)
-    where the reference writes a ``jax.profiler`` trace.  An empty
-    ``profile_dir`` profiles nothing."""
+    operators and the program's spans on every thread, and the card's
+    kernels when ``device`` is a CUDA device), written as
+    ``<profile_dir>/<name>.pt.trace.json`` (Chrome trace format) where the
+    reference writes a ``jax.profiler`` trace.  An empty ``profile_dir``
+    profiles nothing."""
     if not profile_dir:
         yield
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    # every thread: the transcoder's plane and pool threads too
+    with profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True))) as prof:
         yield
     prof.export_chrome_trace(
         os.path.join(profile_dir, f"{name}.pt.trace.json"))

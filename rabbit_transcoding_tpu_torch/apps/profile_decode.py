@@ -13,7 +13,8 @@ in per-map sub-streams):
    decoder's ``StageTimer`` stages (median over the runs) and the points per
    frame;
 2. ``torch.profiler`` over one run: the device's busy share of the wall
-   time and its time per kernel and copy (CUDA only);
+   time (the union of its kernels, copies and sets) and its time per
+   kernel and copy (CUDA only);
 3. ``cProfile`` over one run: the host functions by cumulative time.
 
 Everything printed is also written to ``--out`` when given.
@@ -35,7 +36,7 @@ import torch
 from ..bitstream import V3CReader
 from ..decoder.decoder import Decoder
 from ..device import resolve
-from ..ops.events import device_busy_us
+from ..ops.events import device_busy_s
 from ..testdata import make_stream
 
 
@@ -105,11 +106,11 @@ def main(argv: list[str] | None = None) -> int:
                                  ProfilerActivity.CUDA]) as prof:
             wall, _, _ = run()
         events = prof.key_averages()
-        busy_us = device_busy_us(events)
+        busy_s = device_busy_s(prof)
         launches = sum(e.count for e in events
                        if e.device_type == DeviceType.CUDA)
-        emit(f"profiled_wall_s {wall!r} device_busy_us {busy_us!r} "
-             f"busy_share {busy_us * 1e-6 / wall!r} "
+        emit(f"profiled_wall_s {wall!r} device_busy_s {busy_s!r} "
+             f"busy_share {busy_s / wall!r} "
              f"device_launches {launches!r}")
         emit(events.table(sort_by="self_device_time_total", row_limit=15,
                           max_name_column_width=60))

@@ -11,18 +11,18 @@ does by default (motion compensation with the occupancy-weighted search,
 mosaic intra I frames), so the transcode runs the plain MC and intra chains
 on the device instead of the fused kernel.  ``--streams=S`` (S > 1) times
 and profiles S streams (the stream requantised to input QPs 16, 18, ...)
-through one ``MultiStreamTranscoder`` call per GOF instead (views 1 and 2;
-view 3 stays the first stream's):
+through one ``MultiStreamTranscoder`` call per GOF instead:
 
 1. wall seconds per GOF over ``--runs`` runs after 2 warm-ups, with the
    transcoder's ``StageTimer`` stages (median over the runs);
-2. ``torch.profiler`` over one run: the device's busy share of the wall
-   time and its time per kernel and copy (CUDA only);
-3. the lossy planes one at a time, each step synchronised: entropy decode
-   with upload, the device transcode (the fused kernel, or the MC / intra
-   chains), the V3C read and write, and the whole entropy encode
-   (``encode_blob_total``: freq-major gather, nonzero count, slab download
-   and the backend race), with its first two parts also timed alone.
+2. ``torch.profiler`` over one more run: on a card, the device's busy share
+   of the wall time (the union of its kernels, copies and sets) and its
+   time per kernel and copy;
+3. the program's own spans in that run (``utils/timing``): their summed
+   milliseconds by name, then one row per lossy plane (and stream) with
+   its ``entropy_decode``, ``submit`` and ``entropy_encode`` milliseconds,
+   the backend that won the coefficient blob's race, and its blocking
+   uploads and downloads with their bytes.
 
 Everything printed is also written to ``--out`` when given.
 """
@@ -32,21 +32,20 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import struct
 import subprocess
 import time
+from collections import defaultdict
 
-import numpy as np
 import torch
 
 from ..device import resolve
-from ..ops.events import device_busy_us
+from ..ops.events import device_busy_s
 from ..testdata import make_stream, with_input_qps
 from ..transcoder import (
-    ColorFormat, MultiStreamTranscoder, Transcoder, TranscoderParameters,
-    V3CReader, V3CWriter, VideoType,
+    MultiStreamTranscoder, Transcoder, TranscoderParameters, V3CReader,
+    V3CWriter,
 )
-from ..video import rbv
+from ..utils import timing
 
 GEO_QP, ATTR_QP = 32, 42
 
@@ -63,6 +62,49 @@ def _card() -> str:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def span_table(spans: list[timing.Span]) -> list[str]:
+    """The spans' summed milliseconds by name (threads overlap, so the sums
+    can pass the wall time), then one row per lossy plane: the stage it
+    ran in, its stream and plane index, its entropy decode, submit and
+    entropy encode milliseconds, the race's winner and its copies."""
+    by_id = {s.id: s for s in spans}
+    totals: dict[str, float] = defaultdict(float)
+    rows: dict[tuple, dict] = {}
+    for s in spans:
+        totals[s.name] += 1e3 * (s.t1 - s.t0)
+        if s.plane is None:
+            continue
+        # the stage the plane ran in: the ancestor just under ``transcode``
+        top = s
+        while top.parent in by_id and by_id[top.parent].name != "transcode":
+            top = by_id[top.parent]
+        row = rows.setdefault((top.name, s.stream, s.plane), defaultdict(
+            float, won="-"))
+        if s.name in ("upload", "download"):
+            row[s.name + "s"] += 1
+            row[s.name + "_bytes"] += s.counts["bytes"]
+        elif s.name == "race":
+            if s.counts["won"]:
+                row["won"] = s.counts["candidate"]
+        else:
+            row[s.name] += 1e3 * (s.t1 - s.t0)
+    lines = ["spans_ms " + json.dumps({k: round(v, 3)
+                                       for k, v in totals.items()})]
+    # a batched submit (stream None) before the streams of its plane
+    for (stage, stream, plane), row in sorted(
+            rows.items(), key=lambda kv: (kv[0][0], kv[0][2],
+                                          -1 if kv[0][1] is None
+                                          else kv[0][1])):
+        lines.append(
+            f"plane {stage} stream {stream} #{plane}: entropy_decode "
+            f"{row['entropy_decode']:.3f} ms, submit {row['submit']:.3f} ms, "
+            f"entropy_encode {row['entropy_encode']:.3f} ms, race won by "
+            f"{row['won']}, {row['uploads']:.0f} uploads "
+            f"({row['upload_bytes']:.0f} B), {row['downloads']:.0f} "
+            f"downloads ({row['download_bytes']:.0f} B)")
+    return lines
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -129,70 +171,26 @@ def main(argv: list[str] | None = None) -> int:
     emit("stage_ms_median " + json.dumps(
         {k: statistics.median(s[k] for s in stages) for k in stages[0]}))
 
-    # 2. the device's share of one run
-    if dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
+    # 2. the device's share of one run, 3. the program's spans in it
+    from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall, _ = run()
-        events = prof.key_averages()
-        busy_us = device_busy_us(events)
-        emit(f"profiled_wall_s {wall!r} device_busy_us {busy_us!r} "
-             f"busy_share {busy_us * 1e-6 / wall!r}")
-        emit(events.table(sort_by="self_device_time_total", row_limit=15,
-                          max_name_column_width=60))
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    timing.RECORDER.clear()
+    with profile(activities=activities) as prof:
+        wall, _ = run()
+    if dev.type == "cuda":
+        busy_s = device_busy_s(prof)
+        emit(f"profiled_wall_s {wall!r} device_busy_s {busy_s!r} "
+             f"busy_share {busy_s / wall!r}")
+        emit(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=15,
+            max_name_column_width=60))
     else:
         emit("device busy share: not measured (CPU run)")
-
-    # 3. the lossy planes one step at a time
-    steps = dict.fromkeys(("v3c_read", "decode_blob", "device_transcode",
-                           "freq_major_nnz", "slab_download",
-                           "encode_blob_total", "v3c_write"), 0.0)
-
-    def timed(name, fn, *a):
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = fn(*a)
-        _sync(dev)
-        steps[name] += time.perf_counter() - t0
-        return out
-
-    context = timed("v3c_read", lambda: reader.decode(list(units)))
-    atlas = context.atlas(0)
-    for vt, qp in ((VideoType.GEOMETRY, GEO_QP), (VideoType.ATTRIBUTE,
-                                                   ATTR_QP)):
-        payload = atlas.get_video_bitstream(vt).data
-        flags, w, h, bitdepth, chroma, f, b, gop, qp_in = rbv._parse_header(
-            payload)
-        dims = rbv._plane_dims(w, h, ColorFormat(chroma))
-        for (ph, pw), blob in zip(dims, rbv._iter_blobs(payload, len(dims))):
-            pl = timed("decode_blob", rbv._Plane, blob, flags, f, ph, pw, b,
-                       gop, dev)
-            q2, _ = timed("device_transcode", rbv._transcode_plane, pl,
-                          rbv._f32(rbv.qstep_of(qp_in)),
-                          rbv._f32(rbv.qstep_of(qp)),
-                          float((1 << bitdepth) - 1), gop,
-                          gop if pl.mv is not None else params.videoGopSize,
-                          bool(flags & 4), bool(flags & 8), 0)
-
-            def freq_major():
-                qf = rbv._to_freq_major(q2)
-                return qf, rbv._freq_nnz(qf).cpu().numpy()
-
-            qf, nnz = timed("freq_major_nnz", freq_major)
-            nz = np.nonzero(nnz)[0]
-            kmax = rbv._bucket_kmax(int(nz.max()) + 1, b * b) if len(nz) else 0
-            timed("slab_download", lambda: qf[:, :kmax].contiguous().cpu())
-            out = timed("encode_blob_total", rbv._encode_coeff_blob, q2)
-            (kmax_in,) = struct.unpack_from("<H", pl.coeff_blob, 1)
-            (kmax_out,) = struct.unpack_from("<H", out, 1)
-            emit(f"plane {vt.name} {pw}x{ph}: kmax in {kmax_in} "
-                 f"({pl.coeff_blob[3:4].decode()}), out {kmax_out} "
-                 f"({out[3:4].decode()})")
-    writer = V3CWriter()
-    timed("v3c_write", lambda: writer.write(writer.encode(context)))
-    emit("serial_steps_s " + json.dumps(steps))
+    for line in span_table(timing.RECORDER.spans):
+        emit(line)
 
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:

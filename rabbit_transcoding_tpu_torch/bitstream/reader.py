@@ -9,6 +9,7 @@ sub-bitstream buffers.
 from __future__ import annotations
 
 from ..utils.enums import NalUnitType, V3CUnitType, VideoType
+from ..utils.timing import spanned
 from .bitio import BitReader, BitstreamStat
 from .hls import AtlasHLS, Context
 from .nal import NalUnit, read_sample_stream_nal
@@ -29,6 +30,7 @@ class V3CReader:
         self.stat = stat or BitstreamStat()
 
     # ------------------------------------------------------------------
+    @spanned("v3c_read")
     def read(self, data: bytes) -> list[list[V3CUnit]]:
         """File bytes -> list of GOFs (each a V3C unit list)."""
         if not data:
@@ -43,6 +45,7 @@ class V3CReader:
             return self.read(f.read())
 
     # ------------------------------------------------------------------
+    @spanned("v3c_read")
     def decode(self, units: list[V3CUnit]) -> Context:
         context = Context()
         for unit in units:

@@ -9,6 +9,7 @@ each GOF led by its VPS, as in PccAppTranscoder.cpp:336-349).
 from __future__ import annotations
 
 from ..utils.enums import AtlasTileType, NalUnitType, V3CUnitType, VideoType
+from ..utils.timing import spanned
 from .bitio import BitstreamStat, BitWriter
 from .hls import AtlasHLS, Context
 from .nal import NalUnit, write_sample_stream_nal
@@ -36,6 +37,7 @@ class V3CWriter:
         self.stat = stat or BitstreamStat()
 
     # ------------------------------------------------------------------
+    @spanned("v3c_write")
     def encode(self, context: Context) -> list[V3CUnit]:
         units: list[V3CUnit] = []
         vps = context.vps
@@ -51,6 +53,7 @@ class V3CWriter:
             self.stat.add(u.header.unit_type, len(u.payload) + 4)
         return units
 
+    @spanned("v3c_write")
     def write(self, units: list[V3CUnit], forced_precision: int = 0) -> bytes:
         return write_sample_stream_v3c(units, forced_precision)
 

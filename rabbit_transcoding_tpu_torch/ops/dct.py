@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import to_device
+
 # fp32 everywhere: TF32 keeps ~10 mantissa bits, far too coarse for 10-bit
 # planes in a closed codec loop (the reference pins Precision.HIGHEST for the
 # same reason).  This module holds the port's only matrix products; every
@@ -45,7 +47,7 @@ def dct_matrix(n: int) -> np.ndarray:
 def dct_tensor(n: int, device: torch.device) -> torch.Tensor:
     """``dct_matrix(n)`` as a float32 tensor on ``device`` (shared: do not
     write to it)."""
-    return torch.from_numpy(dct_matrix(n).copy()).to(device)
+    return to_device(dct_matrix(n).copy(), device)
 
 
 def blockify(x: torch.Tensor, block: int) -> torch.Tensor:

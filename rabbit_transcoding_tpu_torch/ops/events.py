@@ -1,6 +1,6 @@
 """CUDA-event timing of a call on the card (``chip_smoke.py`` and
 ``apps/kernel_ab.py``), and the device's busy time in a ``torch.profiler``
-trace (the profiling apps)."""
+trace (the profiling apps, ``chip_smoke.py``)."""
 
 from __future__ import annotations
 
@@ -40,12 +40,19 @@ def median_ms(fn, n: int = 20, warmup: int = 3,
     return statistics.median(times)
 
 
-def device_busy_us(events) -> float:
-    """Microseconds the card was busy in a profile's ``key_averages()``: the
-    kernels' and copies' own rows only.  A CPU-side operator's row repeats
-    the device time of the kernels it launched, so a sum over all rows
-    counts every kernel twice."""
-    from torch.autograd import DeviceType
-
-    return sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA)
+def device_busy_s(prof) -> float:
+    """Seconds in which the card was busy during a finished
+    ``torch.profiler.profile``: the union of its kernels', copies' and
+    sets' intervals, so that work running side by side counts once."""
+    intervals = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in intervals:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy * 1e-9

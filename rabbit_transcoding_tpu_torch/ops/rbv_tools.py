@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import to_device
 from .dct import blockify, dct2d, deblockify, idct2d
 
 # deadzone quantisation offsets: round-half for intra, a wider deadzone for
@@ -58,7 +59,7 @@ MC_OFFSETS = tuple(
 def scalar(x: float, device) -> torch.Tensor:
     """A 0-d float32 tensor ON the device: a CPU scalar divisor would let
     CUDA's true-divide multiply by its reciprocal instead."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return to_device(torch.tensor(x, dtype=torch.float32), device)
 
 
 def qstep_for(qstep, x: torch.Tensor) -> torch.Tensor:
@@ -92,8 +93,8 @@ def fma(a, b, c) -> torch.Tensor:
     followed by round-to-nearest at 24 bits is the correctly rounded sum."""
     ref = next(t for t in (a, b, c) if isinstance(t, torch.Tensor))
     a, b, c = (t.double() if isinstance(t, torch.Tensor)
-               else torch.tensor(float(t), dtype=torch.float64,
-                                 device=ref.device) for t in (a, b, c))
+               else to_device(torch.tensor(float(t), dtype=torch.float64),
+                              ref.device) for t in (a, b, c))
     p = a * b
     s = p + c
     bv = s - p
@@ -165,7 +166,7 @@ def hf_rank(block: int) -> np.ndarray:
 
 def threshold_coeffs(q: torch.Tensor, block: int, thr_k: int) -> torch.Tensor:
     """Zero the quantised +/-1 values at zigzag rank >= thr_k (float q)."""
-    far = torch.from_numpy(hf_rank(block) >= thr_k).to(q.device)
+    far = to_device(hf_rank(block) >= thr_k, q.device)
     return torch.where((torch.abs(q) == 1.0) & far, 0.0, q)
 
 
@@ -257,7 +258,7 @@ def _two_tap(x: torch.Tensor, dim: int, n_out: int,
     the two taps, a0 * w0 + a1 * w1, rounded after each product or
     (``fused``) as the FMA chain fma(a1, w1, a0 * w0)."""
     taps = _linear_taps(x.shape[dim], n_out)
-    i0, i1, w0, w1 = (torch.from_numpy(np.ascontiguousarray(t)).to(x.device)
+    i0, i1, w0, w1 = (to_device(np.ascontiguousarray(t), x.device)
                       for t in taps)
     shape = [1] * x.dim()
     shape[dim] = n_out
@@ -377,7 +378,7 @@ def intra_rebuild(q: torch.Tensor, mode: torch.Tensor, qstep: float,
 
 # --- motion search and compensation ------------------------------------------
 def _offsets(device) -> torch.Tensor:
-    return torch.tensor(MC_OFFSETS, dtype=torch.int64, device=device)
+    return to_device(torch.tensor(MC_OFFSETS, dtype=torch.int64), device)
 
 
 def mc_predict(prev: torch.Tensor, mv_idx: torch.Tensor,

@@ -44,9 +44,10 @@ import struct
 
 import torch
 
-from ..device import resolve
+from ..device import resolve, to_device, to_host
 from ..ops import rbv_tools as tools
 from ..ops.transcode import stack_frames, transcode_coeffs_batched
+from ..utils import timing
 from ..utils.enums import ColorFormat
 from ..video import rbv
 from ..video.rbv import (
@@ -134,7 +135,7 @@ def transcode_payloads(
         group_out = _transcode_group(
             sig, [payloads[i] for i in idxs], [headers[i][8] for i in idxs],
             [qps[i] for i in idxs], mesh, new_gop, zlib_level, mode,
-            coeff_threshold)
+            coeff_threshold, idxs)
         for i, payload in zip(idxs, group_out):
             out[i] = payload
     return out  # type: ignore[return-value]
@@ -142,9 +143,10 @@ def transcode_payloads(
 
 def _transcode_group(sig: tuple, payloads: list[bytes], qps_in: list[int],
                      qps_out: list[int], mesh: Mesh, new_gop: int | None,
-                     zlib_level: int, mode: str,
-                     thr_k: int) -> list[bytes]:
-    """One group of streams of one shape -> their transcoded payloads."""
+                     zlib_level: int, mode: str, thr_k: int,
+                     ids: list[int]) -> list[bytes]:
+    """One group of streams of one shape -> their transcoded payloads.
+    ``ids`` are the streams' indices among the caller's, for the spans."""
     flags, width, height, bitdepth, chroma, f, block, gop = sig
     use_mc, use_db = bool(flags & _MC), bool(flags & _DEBLOCK)
     use_intra = bool(flags & _INTRA)
@@ -163,8 +165,9 @@ def _transcode_group(sig: tuple, payloads: list[bytes], qps_in: list[int],
     for dev, (a, b) in zip(mesh.flat, shard_bounds(s, mesh.size)):
         if a == b:
             continue
-        steps = [torch.tensor([_f32(qstep_of(q)) for q in qps[a:b]],
-                              dtype=torch.float32, device=dev)
+        steps = [to_device(torch.tensor(
+                     [_f32(qstep_of(q)) for q in qps[a:b]],
+                     dtype=torch.float32), dev)
                  for qps in (qps_in, qps_out)]
         shards.append((range(a, b), *steps))
         home[a:b] = [dev] * (b - a)
@@ -208,33 +211,43 @@ def _transcode_group(sig: tuple, payloads: list[bytes], qps_in: list[int],
     blob_lists = [list(_iter_blobs(p, len(dims))) for p in payloads]
     n_i_out = (f + (-f) % gop_out) // gop_out
 
+    parent = timing.current()
+
     def one_plane(pi: int) -> list[bytes]:
         h, w = dims[pi]
+
+        def host_decode(si: int) -> _Plane:
+            with timing.span("entropy_decode", parent, ids[si], pi,
+                             cpu=True):
+                return _Plane(blob_lists[si][pi], flags, f, h, w, block, gop,
+                              home[si])
+
         # host entropy decode onto each stream's shard; only the frequency
         # slabs cross to the devices
         with _pool(s) as ex:
-            planes = list(ex.map(
-                lambda si: _Plane(blob_lists[si][pi], flags, f, h, w, block,
-                                  gop, home[si]), range(s)))
+            planes = list(ex.map(host_decode, range(s)))
         q2s: list = [None] * s
         mode2s: list = [None] * s
         # every shard launches before anything is downloaded
         for streams, qs_in, qs_out in shards:
-            q2, mode2 = run_shard(planes, streams, qs_in, qs_out)
+            with timing.span("submit", parent, plane=pi):
+                q2, mode2 = run_shard(planes, streams, qs_in, qs_out)
             for k, si in enumerate(streams):
                 q2s[si] = q2[k]
                 mode2s[si] = None if mode2 is None else mode2[k]
 
         def host_encode(si: int) -> bytes:
-            pl = planes[si]
-            side = b"" if pl.mv is None else _encode_mv_section(pl.mv,
-                                                                zlib_level)
-            if mode2s[si] is not None:
-                side += _encode_intra_section(
-                    mode2s[si][:n_i_out].cpu().numpy(), zlib_level)
-            else:
-                side += pl.raw_mode  # requant: the mode maps pass through
-            return side + _encode_coeff_blob(q2s[si][:f], zlib_level)
+            with timing.span("entropy_encode", parent, ids[si], pi,
+                             cpu=True):
+                pl = planes[si]
+                side = b"" if pl.mv is None else _encode_mv_section(
+                    pl.mv, zlib_level)
+                if mode2s[si] is not None:
+                    side += _encode_intra_section(
+                        to_host(mode2s[si][:n_i_out]), zlib_level)
+                else:
+                    side += pl.raw_mode  # requant: the mode maps pass through
+                return side + _encode_coeff_blob(q2s[si][:f], zlib_level)
 
         with _pool(s) as ex:
             return list(ex.map(host_encode, range(s)))

@@ -28,6 +28,7 @@ from ..device import resolve
 from ..parallel.mesh import Mesh, mesh_of
 from ..parallel.multistream import transcode_payloads
 from ..utils.enums import VideoType
+from ..utils import timing
 from ..utils.timing import StageTimer
 from ..video import rbv
 from .params import TranscoderParameters
@@ -77,6 +78,7 @@ class MultiStreamTranscoder:
         return self._singles[i]
 
     # ------------------------------------------------------------------
+    @timing.spanned("transcode")
     def transcode_many(self, contexts: list[Context],
                        stream_ids: list[int] | None = None) -> list[Context]:
         """Transcode one GOF of each stream in place, every atlas each
@@ -95,6 +97,7 @@ class MultiStreamTranscoder:
                 [ctx.map1_absolute() for _, ctx in sub])
         return contexts
 
+    @timing.spanned("transcode")
     def transcode(self, contexts: list[Context],
                   atlas_id: int = 0) -> list[Context]:
         """Transcode one GOF of each stream in place, batched."""

@@ -46,10 +46,11 @@ from ..codec.hash import create_hash_sei
 from ..codec.mapstream import attr_bias, combine_map1, geo_bias, make_delta
 from ..codec.patch_frame import decode_patch_frames
 from ..core.image import Video
-from ..device import resolve
+from ..device import resolve, to_device, to_host
 from ..ops.dilate import pad_pow2, push_pull_fill
 from ..ops.occupancy import downscale_maxpool, upsample_nearest
 from ..utils.enums import CodecId, ColorFormat, VideoType
+from ..utils import timing
 from ..utils.timing import StageTimer
 from ..video import VideoDecoder, VideoEncoder, VideoEncoderParams, rbv
 from .params import TranscoderParameters
@@ -99,6 +100,7 @@ class Transcoder:
             with open(path, "wb") as f:
                 f.write(vb.data)
 
+    @timing.spanned("transcode")
     def transcode(self, context: Context, atlas_id: int = 0) -> Context:
         """Transcode one GOF's atlas in place (PCCTranscoder::transcode)."""
         p = self.params
@@ -200,8 +202,8 @@ class Transcoder:
         occ = torch.from_numpy(np.ascontiguousarray(plane))
         if occ.dtype == torch.uint16:   # no max reduction over uint16
             occ = occ.to(torch.int32)
-        small = downscale_maxpool(occ.to(self.device), factor)
-        return small.cpu().numpy().astype(plane.dtype)
+        small = downscale_maxpool(to_device(occ, self.device), factor)
+        return to_host(small).astype(plane.dtype)
 
     def _transcode_occupancy_foreign(self, atlas, vb) -> None:
         """Foreign (Annex-B) occupancy: decode through the resolved codec,
@@ -259,8 +261,8 @@ class Transcoder:
         factor = max(1, asps.asps_frame_width // video.width)
         occ = (np.asarray(video.planes[0]) > 0).astype(np.uint8)
         if factor > 1:
-            occ = upsample_nearest(torch.from_numpy(occ).to(self.device),
-                                   factor).cpu().numpy()
+            occ = to_host(upsample_nearest(to_device(occ, self.device),
+                                           factor))
         return occ[:, : asps.asps_frame_height, : asps.asps_frame_width]
 
     def _fill_video(self, video: Video, occ_mask: np.ndarray,
@@ -282,16 +284,15 @@ class Transcoder:
             if pl.shape[1:] != occ_rep.shape[1:]:
                 # chroma subsampled plane: pool the mask down
                 fy = occ_rep.shape[1] // pl.shape[1]
-                mask = downscale_maxpool(
-                    torch.from_numpy(occ_rep).to(self.device), fy
-                ).cpu().numpy()
+                mask = to_host(downscale_maxpool(
+                    to_device(occ_rep, self.device), fy))
             mask = mask[:, : pl.shape[1], : pl.shape[2]]
             gpad, opad, (oh, ow) = pad_pow2(pl.astype(np.float32), mask)
-            filled = push_pull_fill(torch.from_numpy(gpad).to(self.device),
-                                    torch.from_numpy(opad).to(self.device))
+            filled = push_pull_fill(to_device(gpad, self.device),
+                                    to_device(opad, self.device))
             # torch.round rounds half to even, as np.round does
             filled = torch.clamp(torch.round(filled[:, :oh, :ow]), 0, maxval)
-            planes.append(filled.cpu().numpy().astype(pl.dtype))
+            planes.append(to_host(filled).astype(pl.dtype))
         return (
             Video(video.width, video.height, video.bitdepth, video.format,
                   planes),

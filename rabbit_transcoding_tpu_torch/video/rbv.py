@@ -34,7 +34,7 @@ import torch
 
 from .. import native
 from ..core.image import Video
-from ..device import resolve
+from ..device import resolve, to_device, to_host
 from ..ops import rbv_tools as tools
 from ..ops.dct import blockify, deblockify, pad_to_block
 from ..ops.transcode import (
@@ -43,6 +43,7 @@ from ..ops.transcode import (
     transcode_coeffs,
     transcode_coeffs_ref,
 )
+from ..utils import timing
 from ..utils.enums import ColorFormat
 
 _MAGIC = b"RBV2"
@@ -76,7 +77,7 @@ def _zz_inv(n: int) -> np.ndarray:
 def _to_freq_major(q: torch.Tensor) -> torch.Tensor:
     """(F, nby, nbx, B, B) -> (F, B*B zigzag-ordered, nby, nbx)."""
     f, nby, nbx, b, _ = q.shape
-    zz = torch.from_numpy(tools.zigzag(b)).to(q.device)
+    zz = to_device(tools.zigzag(b), q.device)
     return q.reshape(f, nby, nbx, b * b)[..., zz].permute(0, 3, 1, 2)
 
 
@@ -91,7 +92,7 @@ def _from_freq_slab(slab: torch.Tensor, b: int, kmax: int) -> torch.Tensor:
     full = torch.zeros((f, b * b, nby, nbx), dtype=slab.dtype,
                        device=slab.device)
     full[:, :kmax] = slab
-    inv = torch.from_numpy(_zz_inv(b)).to(slab.device)
+    inv = to_device(_zz_inv(b), slab.device)
     return full.permute(0, 2, 3, 1)[..., inv].reshape(f, nby, nbx, b, b)
 
 
@@ -134,12 +135,12 @@ def _encode_coeff_blob(q: torch.Tensor, level: int = 6) -> bytes:
     f, nby, nbx, b, _ = q.shape
     b2 = b * b
     qf = _to_freq_major(q)
-    nz = np.nonzero(_freq_nnz(qf).cpu().numpy())[0]
+    nz = np.nonzero(to_host(_freq_nnz(qf)))[0]
     if len(nz) == 0:
         return b"\x03" + struct.pack("<H", 0)
     kmax = _bucket_kmax(int(nz.max()) + 1, b2)
     # a fresh tensor (the gather in _to_freq_major copies), safe to edit
-    slab = qf[:, :kmax].contiguous().cpu().numpy()
+    slab = to_host(qf[:, :kmax].contiguous())
     # DC DPCM across the block raster within each frame
     dc = slab[:, 0].reshape(f, nby * nbx).astype(np.int32)
     slab[:, 0] = np.diff(dc, axis=1, prepend=0).astype(np.int16).reshape(
@@ -147,7 +148,14 @@ def _encode_coeff_blob(q: torch.Tensor, level: int = 6) -> bytes:
     head = b"\x03" + struct.pack("<H", kmax)
     if not native.available():
         return head + b"Z" + zlib.compress(slab.tobytes(), level)
-    candidates: list[bytes] = []
+    candidates: list[tuple[bytes, object]] = []
+
+    def race(tag: bytes, make) -> None:
+        """One backend's candidate, a ``race`` span of its own."""
+        with timing.span("race") as sp:
+            sp.note("candidate", tag.decode())
+            candidates.append((head + tag + make(), sp))
+
     starts = _band_plan(kmax)
     # 'B': per-frequency-band rANS contexts; its extra tables lose on small
     # slabs, so it races only above 64 KiB.  RBV_BANDS=0 takes it out of the
@@ -155,16 +163,17 @@ def _encode_coeff_blob(q: torch.Tensor, level: int = 6) -> bytes:
     if (len(starts) > 1 and slab.nbytes > 64 << 10
             and os.environ.get("RBV_BANDS", "1") != "0"):
         segs = _band_segments(f, kmax, nby * nbx, starts)
-        rb = native.compress_i16_bands(slab, segs, len(starts))
-        bandhdr = bytes([len(starts)]) + b"".join(
+        race(b"B", lambda: bytes([len(starts)]) + b"".join(
             struct.pack("<H", s) for s in starts
-        )
-        candidates.append(head + b"B" + bandhdr + rb)
-    candidates.append(head + b"R" + native.compress_i16(slab))
+        ) + native.compress_i16_bands(slab, segs, len(starts)))
+    race(b"R", lambda: native.compress_i16(slab))
     # zlib races only for slabs up to 1 MiB (rANS wins above)
     if slab.nbytes <= 1 << 20:
-        candidates.append(head + b"Z" + zlib.compress(slab.tobytes(), level))
-    return min(candidates, key=len)
+        race(b"Z", lambda: zlib.compress(slab.tobytes(), level))
+    best = min(candidates, key=lambda c: len(c[0]))
+    for c in candidates:
+        c[1].note("won", c is best)
+    return best[0]
 
 
 def _densify(idx: np.ndarray, vals: np.ndarray, shape: tuple,
@@ -173,8 +182,8 @@ def _densify(idx: np.ndarray, vals: np.ndarray, shape: tuple,
     tensor of ``shape`` on ``device``.  Indices outside the tensor are
     dropped, as the reference's ``mode="drop"`` scatter drops them."""
     n = int(np.prod(shape))
-    idx_t = torch.from_numpy(idx.astype(np.int64)).to(device)
-    vals_t = torch.from_numpy(np.array(vals, np.int16)).to(device)
+    idx_t = to_device(idx.astype(np.int64), device)
+    vals_t = to_device(np.array(vals, np.int16), device)
     keep = (idx_t >= 0) & (idx_t < n)
     flat = torch.zeros(n, dtype=torch.int16, device=device)
     flat[idx_t[keep]] = vals_t[keep]
@@ -284,7 +293,7 @@ def _decode_coeff_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
         dcd = q16[:, :, :, 0, 0].reshape(f, nby * nbx).astype(np.int32)
         q16[:, :, :, 0, 0] = np.cumsum(dcd, axis=1).reshape(
             f, nby, nbx).astype(np.int16)
-        return torch.from_numpy(q16).to(device)
+        return to_device(q16, device)
     raise ValueError(f"unknown RBV coefficient blob mode {mode}")
 
 
@@ -318,9 +327,9 @@ def _decode_slab_blob(blob: bytes, f: int, nby: int, nbx: int, b: int,
         # coefficients are clipped to +-32767 upstream, so abs() is exact
         if np.abs(ac).max(initial=0) <= 127:
             return _from_freq_slab_split(
-                torch.from_numpy(slab[:, 0].copy()).to(device),
-                torch.from_numpy(ac.astype(np.int8)).to(device), b, kmax)
-    return _from_freq_slab(torch.from_numpy(slab).to(device), b, kmax)
+                to_device(slab[:, 0].copy(), device),
+                to_device(ac.astype(np.int8), device), b, kmax)
+    return _from_freq_slab(to_device(slab, device), b, kmax)
 
 
 def _encode_mv_section(mv: np.ndarray, level: int) -> bytes:
@@ -401,11 +410,7 @@ def _plane_dims(width: int, height: int,
 def _to_device(p: np.ndarray, device) -> torch.Tensor:
     # integer samples are exact in float32; cast on the host because torch
     # has no uint16 arithmetic
-    return torch.from_numpy(p.astype(np.float32)).to(device)
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
+    return to_device(p.astype(np.float32), device)
 
 
 def encode(video: Video, params: RbvParams,
@@ -460,14 +465,14 @@ def encode(video: Video, params: RbvParams,
                 search=use_mc, weights=weights)
             blob = b""
             if use_mc:
-                blob += _encode_mv_section(_host(coded["mv"]),
+                blob += _encode_mv_section(to_host(coded["mv"]),
                                            params.zlib_level)
             if use_intra:
-                blob += _encode_intra_section(_host(coded["mode"]),
+                blob += _encode_intra_section(to_host(coded["mode"]),
                                               params.zlib_level)
             blobs.append(blob + _encode_coeff_blob(coded["q"],
                                                    params.zlib_level))
-            rec = deblockify(coded["rec"]).to(torch.int32).cpu().numpy()
+            rec = to_host(deblockify(coded["rec"]).to(torch.int32))
             recon_planes.append(rec[:, :orig_h, :orig_w].astype(p.dtype))
 
     out = bytearray(header)
@@ -524,7 +529,7 @@ class _Plane:
 
     def tensor(self, name: str):
         x = getattr(self, name)
-        return None if x is None else torch.from_numpy(x).to(self.q.device)
+        return None if x is None else to_device(x, self.q.device)
 
 
 def decode(payload: bytes, device: torch.device | str = "cuda") -> Video:
@@ -552,7 +557,7 @@ def decode(payload: bytes, device: torch.device | str = "cuda") -> Video:
         rec = deblockify(decode_chain(
             pl.q, _f32(qstep_of(qp)), maxval, gop, bool(flags & _DEBLOCK),
             pl.tensor("mode"), pl.tensor("mv")))
-        planes.append(rec.to(torch.int32).cpu().numpy()[:, :h, :w]
+        planes.append(to_host(rec.to(torch.int32))[:, :h, :w]
                       .astype(dtype))
     return Video(width, height, bitdepth, fmt, planes)
 
@@ -678,24 +683,31 @@ def transcode_payload(
     qs_out = _f32(qstep_of(new_qp))
     maxval = float((1 << bitdepth) - 1)
 
+    parent = timing.current()
+
     def one_plane(args) -> bytes:
-        (h, w), blob = args
-        pl = _Plane(blob, flags, f, h, w, block, gop, device)
-        q2, mode2 = _transcode_plane(pl, qs_in, qs_out, maxval, gop, gop_out,
-                                     use_db, use_intra, coeff_threshold)
-        side = b"" if pl.mv is None else _encode_mv_section(pl.mv,
-                                                             zlib_level)
-        if mode2 is not None:
-            n_i_out = (f + ((-f) % gop_out)) // gop_out
-            side += _encode_intra_section(_host(mode2)[:n_i_out], zlib_level)
-        return side + _encode_coeff_blob(q2, zlib_level)
+        pi, ((h, w), blob) = args
+        with timing.span("entropy_decode", parent, plane=pi, cpu=True):
+            pl = _Plane(blob, flags, f, h, w, block, gop, device)
+        with timing.span("submit", parent, plane=pi):
+            q2, mode2 = _transcode_plane(pl, qs_in, qs_out, maxval, gop,
+                                         gop_out, use_db, use_intra,
+                                         coeff_threshold)
+        with timing.span("entropy_encode", parent, plane=pi, cpu=True):
+            side = b"" if pl.mv is None else _encode_mv_section(pl.mv,
+                                                                 zlib_level)
+            if mode2 is not None:
+                n_i_out = (f + ((-f) % gop_out)) // gop_out
+                side += _encode_intra_section(to_host(mode2)[:n_i_out],
+                                              zlib_level)
+            return side + _encode_coeff_blob(q2, zlib_level)
 
     # one thread per plane: host entropy (rANS, inflate/deflate release the
     # interpreter lock) overlaps across planes while the device queue runs
     # the chains in order; ex.map keeps the plane order
     with cf.ThreadPoolExecutor(max_workers=max(1, len(dims))) as ex:
-        blobs = list(ex.map(one_plane, zip(dims, _iter_blobs(payload,
-                                                             len(dims)))))
+        blobs = list(ex.map(one_plane, enumerate(zip(
+            dims, _iter_blobs(payload, len(dims))))))
     out = bytearray(header)
     for blob in blobs:
         out.extend(struct.pack("<I", len(blob)))

@@ -247,5 +247,5 @@ def test_profile_script_mc_intra_runs_on_cpu(tmp_path):
         "--device=cpu", "--frames=2", "--size=64", "--runs=1",
         "--tools=mc_intra", f"--out={out}"]) == 0
     text = out.read_text()
-    assert "tools mc_intra" in text and "device_transcode" in text
+    assert "tools mc_intra" in text and "submit" in text
     assert text.count("plane ") == 4

@@ -201,6 +201,6 @@ def test_profile_script_runs_on_cpu(tmp_path, capsys):
     assert profile_transcode.main(["--device=cpu", "--frames=2", "--size=64",
                                    "--runs=1", f"--out={out}"]) == 0
     text = out.read_text()
-    assert "frames_per_s" in text and "serial_steps_s" in text
+    assert "frames_per_s" in text and "spans_ms" in text
     assert text.count("plane ") == 4  # geometry luma + attribute Y, U, V
     assert text.strip() == capsys.readouterr().out.strip()
