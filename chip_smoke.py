@@ -34,10 +34,14 @@ Phases, one result line each; any failure raises and the exit code is not 0:
 5. MC + intra stream: the same content coded as the repo's encoder codes it
    by default (motion-compensated P frames with the occupancy-weighted
    search, mosaic intra I frames, GOP 2), built on the card;
-6. MC + intra ``reencode``: that stream through ``Transcoder(device=cuda)``
-   at the same QPs, one warm-up and 3 timed runs, with 0 launches of the
-   kernel (the branch runs the plain chains on the card), every output
-   sub-stream decoding, and the output held against a ``device=cpu`` run;
+6. MC + intra ``reencode``: first the MC + intra kernel alone
+   (``mc_intra_kernel``) on that stream's geometry luma, one stream and
+   S = 4 stacked, equal to its plain twin, its times by CUDA events beside
+   the twin's and its share of the bytes bound; then the stream through
+   ``Transcoder(device=cuda)`` at the same QPs, one warm-up and 3 timed
+   runs, 3 launches of the MC + intra kernel per plane and none of the
+   fused one, every output sub-stream decoding, and the output held
+   against a ``device=cpu`` run;
 7. ``requant`` mode on both streams (the bench stream requantises drift-
    compensated, the MC + intra stream open-loop), timed and held against
    ``device=cpu`` runs in the same way;
@@ -51,8 +55,9 @@ Phases, one result line each; any failure raises and the exit code is not 0:
    timed runs, 4 kernel launches per run whatever S, every output equal to
    ``Transcoder(device=cuda)`` on that stream alone; aggregate frames/s of
    the batched run and of the sequential loop;
-10. multi-stream, MC + intra: phase 5's stream and a requantised copy, the
-    batched plain chains against the sequential port;
+10. multi-stream, MC + intra: phase 5's stream and a requantised copy,
+    batched through the MC + intra kernel (3 launches per plane for both),
+    against the sequential port;
 11. lossless input over an occupancy map (push-pull fill), a predicted map
     pair (built without MC) and ABR (on the bench stream, targeting phase
     4's output bit rate at 30 fps), each at 1024x1024, timed, and held
@@ -276,6 +281,8 @@ MAX_DIFF = 1
 FRAMES, WIDTH, HEIGHT = 32, 1024, 1024
 GEO_QP, ATTR_QP = 32, 42
 KERNEL_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_gops.cu"
+# replaces no TPU kernel: the plain chains of the MC + intra branch
+MC_INTRA_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_mc_intra.cu"
 REPLACES = "rabbit_transcoding_tpu/ops/pallas_transcode.py:86"
 # input QPs (geometry; attribute + 6) of the multi-stream phases' streams
 STREAM_QPS = (16, 18, 20, 22)
@@ -502,18 +509,73 @@ def multistream_phase(streams: list[bytes], dev, params,
 
 def multistream_mc_intra_phase(data_mi: bytes, dev, params, card) -> None:
     """10. The MC + intra stream and a requantised copy, batched through
-    the plain chains, against the sequential port."""
+    the MC + intra kernel (3 launches per plane for both streams), against
+    the sequential port."""
     datas = [data_mi, with_input_qps(data_mi, 18, 24, dev)]
-    tc.LAUNCHES = 0
+    tc.LAUNCHES = tc.MC_INTRA_LAUNCHES = 0
     outs, walls = timed_runs(lambda: transcode_many_bytes(datas, dev, params),
                              n=1)
+    batched = tc.MC_INTRA_LAUNCHES
     seq, seq_walls = timed_runs(
         lambda: [transcode_bytes(d, dev, params) for d in datas], n=1)
     phase("multistream_mc_intra", streams=2, wall_s=repr(walls),
           sequential_wall_s=repr(seq_walls), launches=tc.LAUNCHES,
-          bytes_equal=outs == seq, card=repr(card))
+          mc_intra_launches=batched, bytes_equal=outs == seq,
+          card=repr(card))
     check(outs == seq, "MC + intra: batched output differs from sequential")
     check(tc.LAUNCHES == 0, f"MC + intra: {tc.LAUNCHES} kernel launches")
+    # 2 rounds (one warm-up) of 4 planes, 3 launches each, both streams in
+    # each launch
+    check(batched == 2 * 4 * 3,
+          f"MC + intra: {batched} batched MC + intra launches, want 24")
+
+
+def mc_intra_kernel_phase(data_mi: bytes, dev, card) -> dict:
+    """6b. The MC + intra kernel alone against its plain twin on the MC +
+    intra stream's geometry luma (32, 64, 64, 16, 16): one stream, and
+    S = 4 copies stacked on the frame axis at per-frame steps of input QPs
+    ``STREAM_QPS``; times by CUDA events, and the share of the least time
+    the card could take to read the coefficients, motion vectors and mode
+    maps once and write the coefficients and mode maps once (3.35 TB/s;
+    the 16-bit planes between its launches are not counted)."""
+    pl = stream_planes(data_mi, dev)[("GEOMETRY", 0)]
+    mv, imode = pl.tensor("mv"), pl.tensor("mode")
+    row = {}
+    for s in (1, 4):
+        q = pl.q.repeat(s, 1, 1, 1, 1)
+        if s == 1:
+            steps = (qstep(16), qstep(GEO_QP))
+        else:
+            steps = (torch.tensor([qstep(x) for x in STREAM_QPS],
+                                  device=dev).repeat_interleave(FRAMES),
+                     torch.full((s * FRAMES,), qstep(GEO_QP), device=dev))
+        args = (q, mv.repeat(s, 1, 1), imode.repeat(s, 1, 1), *steps,
+                1023.0, 2)
+        before = tc.MC_INTRA_LAUNCHES
+        got = tc.transcode_mc_intra(*args)
+        torch.cuda.synchronize()
+        launches = tc.MC_INTRA_LAUNCHES - before
+        want = tc.transcode_mc_intra_ref(*args)
+        equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        k_ms, k_dev = kernel_times(lambda: tc.transcode_mc_intra(*args))
+        p_ms = median_ms(lambda: tc.transcode_mc_intra_ref(*args), n=5)
+        nbytes = (2 * q.numel() * q.element_size() + args[1].numel() * 4
+                  + 2 * args[2].numel())
+        bound = nbytes / tc.H100_BYTES_PER_S * 1e3
+        phase("mc_intra_kernel", streams=s, shape=tuple(q.shape),
+              equal=equal, launches=launches, kernel_ms=f"{k_ms:.4f}",
+              device_ms=f"{k_dev:.4f}", plain_ms=f"{p_ms:.4f}",
+              bytes=nbytes, bound_ms=f"{bound:.4f}", bound_by="bytes",
+              bound_share=f"{bound / k_ms:.4f}",
+              device_bound_share=f"{bound / k_dev:.4f}", card=repr(card))
+        check(equal, f"S={s}: MC + intra kernel differs from its twin")
+        check(launches == 3, f"S={s}: {launches} launches, want 3")
+        if s == 1:
+            row = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": bound, "bound_by": "bytes",
+                   "library_ms": None, "bound_share": bound / k_ms,
+                   "device_ms": k_dev, "launches_per_plane": launches}
+    return row
 
 
 def full_and_small_phase(name: str, full: bytes, small: bytes, dev,
@@ -2384,25 +2446,33 @@ def main() -> int:
     phase("mc_intra_stream", frames=FRAMES, size=f"{WIDTH}x{HEIGHT}",
           bytes=len(data_mi), seconds=f"{time.perf_counter() - t0:.3f}")
     units_mi = reader.read(data_mi)[0]
+    mc_intra_row = mc_intra_kernel_phase(data_mi, dev, card)
     cpu = torch.device("cpu")
     requant = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
                                    mode="requant")
 
-    # 6. MC + intra reencode on the card: the plain chains, no kernel
+    # 6. MC + intra reencode on the card: the MC + intra kernel, 3 launches
+    # per plane (GOP 2), no transcode_gops launch
     # 7. requant mode on the bench stream and on the MC + intra stream
-    for name, stream_units, mode_params in (
-            ("mc_intra_reencode", units_mi, params),
-            ("bench_requant", units, requant),
-            ("mc_intra_requant", units_mi, requant)):
-        tc.LAUNCHES = 0
+    for name, stream_units, mode_params, mc_intra in (
+            ("mc_intra_reencode", units_mi, params, 4 * 4 * 3),
+            ("bench_requant", units, requant, 0),
+            ("mc_intra_requant", units_mi, requant, 0)):
+        tc.LAUNCHES = tc.MC_INTRA_LAUNCHES = 0
         out, walls = timed_runs(lambda: run(dev, stream_units, mode_params))
         runs_launches = tc.LAUNCHES
         wall = statistics.median(walls)
         phase(name, runs=len(walls), wall_s=repr(walls),
               median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
-              launches=runs_launches, out_bytes=len(out), card=repr(card))
+              launches=runs_launches,
+              mc_intra_launches=tc.MC_INTRA_LAUNCHES, out_bytes=len(out),
+              card=repr(card))
         check(runs_launches == 0,
               f"{name}: {runs_launches} kernel launches, want 0")
+        # 4 runs (one warm-up) of 4 planes
+        check(tc.MC_INTRA_LAUNCHES == mc_intra,
+              f"{name}: {tc.MC_INTRA_LAUNCHES} MC + intra launches, want "
+              f"{mc_intra}")
         check_decodes(out, dev)
         t0 = time.perf_counter()
         out_cpu = run(cpu, stream_units, mode_params)
@@ -2477,6 +2547,9 @@ def main() -> int:
     }, {
         "name": "transcode_gops_batched", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES, **batched,
+    }, {
+        "name": "transcode_mc_intra", "route": "cuda",
+        "source": MC_INTRA_SOURCE, "replaces": None, **mc_intra_row,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

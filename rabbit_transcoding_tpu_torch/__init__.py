@@ -2,9 +2,10 @@
 
 The JAX package ``rabbit_transcoding_tpu`` is the reference; this package
 runs the same RBV live transcode in PyTorch on an NVIDIA Hopper card, with
-its one device kernel (the fused GOP transcode) written by hand in CUDA C++
-(``csrc/transcode_gops.cu``).  Module names follow the reference so each
-counterpart is easy to find:
+its device kernels written by hand in CUDA C++: the fused GOP transcode
+(``csrc/transcode_gops.cu``) and the transcode of streams with motion
+compensation and intra prediction (``csrc/transcode_mc_intra.cu``).  Module
+names follow the reference so each counterpart is easy to find:
 
   apps/        CLI entry points (``python -m rabbit_transcoding_tpu_torch.apps.transcode``,
                ``...apps.stream`` for several resumable streams)

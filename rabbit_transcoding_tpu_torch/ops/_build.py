@@ -1,7 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` source into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` source (with the
+headers beside them) into one shared library with a plain C interface (no PyTorch headers, so the build takes
 seconds), which is loaded with ``ctypes``.  The library lives in
 ``build/torch_kernels/`` at the root of the checkout and is rebuilt when a
 source is newer than it.  A failed build or load raises; there is no
@@ -33,6 +33,10 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -49,7 +53,7 @@ def _stale() -> bool:
     if not LIBRARY.exists():
         return True
     built = LIBRARY.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources())
+    return any(s.stat().st_mtime > built for s in sources() + headers())
 
 
 def build(force: bool = False) -> float:
@@ -63,10 +67,13 @@ def build(force: bool = False) -> float:
 
 def compile_library(srcs, library: Path, log: Path) -> float:
     """nvcc ``srcs`` into the shared library ``library`` -> seconds spent;
-    nvcc's output goes to ``log``.  Raises when nvcc fails."""
+    nvcc's output goes to ``log``.  The package's headers are on the
+    include path, for a copy of a source kept elsewhere.  Raises when nvcc
+    fails."""
     library.parent.mkdir(parents=True, exist_ok=True)
     tmp = library.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, srcs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -122,7 +129,8 @@ def _load() -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a kernel library on ``lib`` (also used
-    for a library built from another version of the sources)."""
+    for a library built from another version of the sources, which may
+    lack ``rbv_transcode_mc_intra``)."""
     lib.rbv_transcode_gops.restype = ctypes.c_int
     lib.rbv_transcode_gops.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # in, out, dmat
@@ -141,6 +149,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_float, ctypes.c_float,      # maxval, dz_intra, dz_inter
         ctypes.c_int, ctypes.c_void_p,                       # device, stream
     ]
+    if hasattr(lib, "rbv_transcode_mc_intra"):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.rbv_transcode_mc_intra.restype = i32
+        lib.rbv_transcode_mc_intra.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,  # q_in, q_out, mode_out, mv, imode
+            ptr, ptr, ptr, ptr,       # dcq, planes, taps_h, taps_w
+            i32, i32, i32, i32,       # frames, nby, nbx, gop
+            i32, i32,                 # h_first, fused
+            ptr, ptr, f32, f32,       # qs_in_f, qs_out_f, qs_in, qs_out
+            f32, f32, f32,            # maxval, dz_intra, dz_inter
+            i32, ptr,                 # device, stream
+        ]
     lib.rbv_cuda_error_string.restype = ctypes.c_char_p
     lib.rbv_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

@@ -275,6 +275,22 @@ def planar_h_first(nby: int, nbx: int) -> bool:
     return nby >= nbx
 
 
+def planar_order(nby: int, nbx: int, vmapped: bool) -> tuple[bool, bool]:
+    """(h_first, fused) of the planar resize of an (nby, nbx) mosaic: the
+    order of its two products (``planar_h_first``) and whether the second
+    one is the FMA chain (else the sum of two rounded products).
+
+    Measured on XLA's CPU code over contraction lengths K from 2 to 66,
+    with and without the per-GOP ``vmap`` (``vmapped``): the first product
+    is always the FMA chain; the second one is the sum of rounded products
+    when K >= 5 and K % 4 is 1 or 2, except that a ``vmap``ped second
+    product over H is always the FMA chain."""
+    h_first = planar_h_first(nby, nbx)
+    k = nbx if h_first else nby
+    fused = (vmapped and not h_first) or not (k >= 5 and k % 4 in (1, 2))
+    return h_first, fused
+
+
 def mosaic_planar(mu: torch.Tensor, h: int, w: int,
                   vmapped: bool = False) -> torch.Tensor:
     """(..., nby, nbx) mosaic -> (..., H, W), bilinear at block centers
@@ -283,15 +299,8 @@ def mosaic_planar(mu: torch.Tensor, h: int, w: int,
     XLA runs it as two products (in the order of ``planar_h_first``) whose
     weight matrices have two non-zero taps per output, so each output of a
     product is either the FMA chain fma(a1, w1, a0 * w0) or the sum of two
-    rounded products.  Measured on XLA's CPU code over contraction lengths
-    K from 2 to 66, with and without the per-GOP ``vmap`` (``vmapped``):
-    the first product is always the FMA chain; the second one is the sum of
-    rounded products when K >= 5 and K % 4 is 1 or 2, except that a
-    ``vmap``ped second product over H is always the FMA chain."""
-    nby, nbx = mu.shape[-2:]
-    h_first = planar_h_first(nby, nbx)
-    k = nbx if h_first else nby
-    fused = (vmapped and not h_first) or not (k >= 5 and k % 4 in (1, 2))
+    rounded products (``planar_order``)."""
+    h_first, fused = planar_order(*mu.shape[-2:], vmapped)
     if h_first:
         return _two_tap(_two_tap(mu, -2, h, True), -1, w, fused)
     return _two_tap(_two_tap(mu, -1, w, True), -2, h, fused)

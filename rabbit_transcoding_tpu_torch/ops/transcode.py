@@ -18,6 +18,12 @@ threshold options, the motion-compensated ``_encode_impl_mc_core``,
   for S streams of one shape with per-stream steps, one kernel launch for
   all of them (the batched multi-stream path).
   ``LAUNCHES`` counts kernel launches, ``BATCHED_LAUNCHES`` the batched ones.
+* ``transcode_mc_intra`` / ``transcode_mc_intra_ref``: the chains'
+  transcode of a stream with motion compensation and intra prediction (no
+  deblocking, no threshold): for a CUDA tensor the hand-written Hopper
+  kernel ``csrc/transcode_mc_intra.cu``, gop + 1 launches for every GOP of
+  the call (``MC_INTRA_LAUNCHES``); its twin ``decode_chain`` +
+  ``encode_chain``.
 
 Layout in and out: frame-major ``(F, nby, nbx, B, B)`` (int16 coefficients,
 float32 pixel blocks).  Numerics: fp32, round half to even, a true division
@@ -33,6 +39,8 @@ import threading
 import numpy as np
 import torch
 
+from ..device import to_device
+from ..utils import timing
 from . import _build
 from . import rbv_tools as tools
 from .dct import (blockify, dct2d, dct_matrix, dct_tensor, deblockify,
@@ -44,7 +52,18 @@ from .rbv_tools import DZ_INTER, DZ_INTRA, qstep_for, quantize, scalar
 # main path went through the kernel)
 LAUNCHES = 0
 BATCHED_LAUNCHES = 0
+# kernel launches made by transcode_mc_intra (gop + 1 a call)
+MC_INTRA_LAUNCHES = 0
 _launch_lock = threading.Lock()
+
+
+def note_kernel(name: str) -> None:
+    """Name the hand-written kernel that ran (``"gops"``, ``"mc_intra"``) on
+    the enclosing ``submit`` span, where one is recorded: a plane's device
+    work that carries no name ran as plain PyTorch."""
+    sp = timing.current()
+    if sp is not None and sp.name == "submit":
+        sp.note("kernel", name)
 
 
 def _pad_frames(x: torch.Tensor, gop: int) -> torch.Tensor:
@@ -368,6 +387,7 @@ def launch(coeffs: torch.Tensor, out: torch.Tensor, qs_in, qs_out,
     with _launch_lock:
         LAUNCHES += 1
         BATCHED_LAUNCHES += entry.endswith("_batched")
+    note_kernel("gops")
 
 
 def transcode_coeffs(coeffs: torch.Tensor, qs_in: float, qs_out: float,
@@ -408,3 +428,136 @@ def transcode_coeffs_batched(coeffs: torch.Tensor, qs_in: torch.Tensor,
     if out.numel():
         launch(coeffs, out, qs_in, qs_out, maxval, gop_in, gop_out)
     return out
+
+
+# --- the MC + intra chains in one kernel -------------------------------------
+def mc_intra_applies(device: torch.device, block: int, motion: bool,
+                     intra: bool, deblock: bool, thr_k: int, gop: int,
+                     gop_out: int) -> bool:
+    """Whether ``transcode_chains`` takes ``transcode_mc_intra``: a CUDA
+    tensor, a stream with motion compensation and intra prediction, 16 x 16
+    blocks, no deblocking, no coefficient threshold, the output GOP the
+    input's (flags of the stream's header).  Everything else runs the plain
+    chains."""
+    return (device.type == "cuda" and motion and intra and not deblock
+            and not thr_k and block == 16 and gop_out == gop)
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_table(n_in: int, n_out: int) -> np.ndarray:
+    """``rbv_tools._linear_taps(n_in, n_out)`` as the kernel reads it: int32
+    (n_out, 4) rows of i0, i1 and the float32 bits of w0, w1 (shared, do
+    not write to it)."""
+    i0, i1, w0, w1 = tools._linear_taps(n_in, n_out)
+    table = np.empty((n_out, 4), np.int32)
+    table[:, 0], table[:, 1] = i0, i1
+    table[:, 2], table[:, 3] = w0.view(np.int32), w1.view(np.int32)
+    table.flags.writeable = False
+    return table
+
+
+def mc_intra_plan(nby: int, nbx: int) -> tuple:
+    """The host side of the kernel's planar mosaic for (nby, nbx) blocks of
+    16: (taps over H, taps over W, h_first, fused), as
+    ``rbv_tools.mosaic_planar`` resizes under the per-GOP ``vmap`` (the
+    chains with motion vectors always run under it)."""
+    h_first, fused = tools.planar_order(nby, nbx, vmapped=True)
+    return (_taps_table(nby, nby * 16), _taps_table(nbx, nbx * 16), h_first,
+            fused)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(n_in: int, n_out: int, device: torch.device
+                 ) -> torch.Tensor:
+    """``_taps_table`` on ``device``, uploaded once per process."""
+    return to_device(_taps_table(n_in, n_out).copy(), device)
+
+
+def _step_arg(qs, frames: int, device) -> tuple:
+    """A quantiser step as the kernel takes it: (pointer to a float32
+    (frames,) tensor on ``device`` or None, the float for every frame)."""
+    if not isinstance(qs, torch.Tensor):
+        return None, float(qs)
+    if (qs.dtype != torch.float32 or tuple(qs.shape) != (frames,)
+            or qs.device != device or not qs.is_contiguous()):
+        raise ValueError(
+            f"per-frame steps must be float32 ({frames},) on {device}, got "
+            f"{qs.dtype} {tuple(qs.shape)} on {qs.device}")
+    return qs.data_ptr(), 0.0
+
+
+def transcode_mc_intra_ref(q: torch.Tensor, mv: torch.Tensor,
+                           imode: torch.Tensor, qs_in, qs_out,
+                           maxval: float, gop: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain twin: ``decode_chain`` + ``encode_chain`` of a
+    stream with motion vectors and intra mode maps, as
+    ``video/rbv.py:transcode_chains`` runs them without deblocking or a
+    threshold -> (int16 coefficients, uint8 mode maps)."""
+    pixels = decode_chain(q, qs_in, maxval, gop, False, imode, mv)
+    coded = encode_chain(pixels, qs_out, maxval, gop, recon=False,
+                         intra=True, mv=mv)
+    return coded["q"], coded["mode"]
+
+
+def transcode_mc_intra(q: torch.Tensor, mv: torch.Tensor,
+                       imode: torch.Tensor, qs_in, qs_out, maxval: float,
+                       gop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``transcode_mc_intra_ref`` on any device: for a CUDA tensor the
+    Hopper kernel, equal to it bit for bit; for a CPU tensor the plain
+    twin.  int16 coefficients (F, nby, nbx, 16, 16), ``mv`` (F, nby, nbx)
+    indices into ``rbv_tools.MC_OFFSETS``, ``imode`` (ceil(F / gop), nby,
+    nbx) (non-zero: planar) -> (int16 coefficients of q's shape, uint8 mode
+    maps of imode's shape).  The steps are floats, or per-frame (F,)
+    float32 tensors on the device (streams stacked on the frame axis, each
+    padded to whole GOPs).  On the card: gop + 1 launches on the current
+    stream, no host synchronisation; the resize taps are uploaded once per
+    shape and device."""
+    if q.device.type == "cpu":
+        return transcode_mc_intra_ref(q, mv, imode, qs_in, qs_out, maxval,
+                                      gop)
+    _check_kernel_input(q, ("F",), gop, gop)
+    f, nby, nbx = q.shape[:3]
+    n_gops = -(-f // gop)
+    dev = q.device
+    if tuple(mv.shape) != (f, nby, nbx) or mv.device != dev:
+        raise ValueError(f"motion vectors must be ({f}, {nby}, {nbx}) on "
+                         f"{dev}, got {tuple(mv.shape)} on {mv.device}")
+    if tuple(imode.shape) != (n_gops, nby, nbx) or imode.device != dev:
+        raise ValueError(f"mode maps must be ({n_gops}, {nby}, {nbx}) on "
+                         f"{dev}, got {tuple(imode.shape)} on "
+                         f"{imode.device}")
+    mv = mv.to(torch.int32).contiguous()
+    imode = imode.to(torch.uint8).contiguous()
+    qs_in_f, qs_in = _step_arg(qs_in, f, dev)
+    qs_out_f, qs_out = _step_arg(qs_out, f, dev)
+    out = torch.empty_like(q)
+    mode = torch.empty((n_gops, nby, nbx), dtype=torch.uint8, device=dev)
+    if not q.numel():
+        return out, mode
+    _, _, h_first, fused = mc_intra_plan(nby, nbx)
+    taps_h = _device_taps(nby, nby * 16, dev)
+    taps_w = _device_taps(nbx, nbx * 16, dev)
+    dcq = torch.empty((n_gops, nby, nbx), dtype=torch.float32, device=dev)
+    # the decoded and closed-loop planes between launches, 16-bit samples
+    planes = torch.empty((2 if gop <= 2 else 4, n_gops, nby * 16, nbx * 16),
+                         dtype=torch.int16, device=dev)
+    lib = _build.library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = lib.rbv_transcode_mc_intra(
+        q.data_ptr(), out.data_ptr(), mode.data_ptr(), mv.data_ptr(),
+        imode.data_ptr(), dcq.data_ptr(), planes.data_ptr(),
+        taps_h.data_ptr(), taps_w.data_ptr(), f, nby, nbx, gop,
+        int(h_first), int(fused), qs_in_f, qs_out_f, qs_in, qs_out, maxval,
+        DZ_INTRA, DZ_INTER, index,
+        torch.cuda.current_stream(index).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"transcode_mc_intra launch failed: CUDA error {err} "
+            f"({lib.rbv_cuda_error_string(err).decode()})")
+    global MC_INTRA_LAUNCHES
+    with _launch_lock:
+        MC_INTRA_LAUNCHES += gop + 1
+    note_kernel("mc_intra")
+    return out, mode

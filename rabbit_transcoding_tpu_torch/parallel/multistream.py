@@ -190,14 +190,15 @@ def _transcode_group(sig: tuple, payloads: list[bytes], qps_in: list[int],
             # the kernel's branch: one launch for the shard
             return transcode_coeffs_batched(q, qs_in, qs_out, maxval, gop,
                                             gop_out), None
-        mv = imode = None
-        if use_mc:
-            mv = stack_frames(
-                torch.stack([planes[si].tensor("mv") for si in streams]), fp)
-        if use_intra:
-            imode = stack_frames(
-                torch.stack([planes[si].tensor("mode") for si in streams]),
-                fp // gop)
+        def side(name: str, frames: int) -> torch.Tensor:
+            # the streams' side sections stacked and padded on the host:
+            # one upload (one drain of the device's queue) per shard
+            return to_device(stack_frames(torch.stack([
+                torch.from_numpy(getattr(planes[si], name))
+                for si in streams]), frames), q.device)
+
+        mv = side("mv", fp) if use_mc else None
+        imode = side("mode", fp // gop) if use_intra else None
         q2, mode2 = transcode_chains(
             stack_frames(q, fp), mv, imode, qs_in.repeat_interleave(fp),
             qs_out.repeat_interleave(fp), maxval, gop, gop_out, use_db,

@@ -40,8 +40,10 @@ from ..ops.dct import blockify, deblockify, pad_to_block
 from ..ops.transcode import (
     decode_chain,
     encode_chain,
+    mc_intra_applies,
     transcode_coeffs,
     transcode_coeffs_ref,
+    transcode_mc_intra,
 )
 from ..utils import timing
 from ..utils.enums import ColorFormat
@@ -623,7 +625,13 @@ def transcode_chains(q: torch.Tensor, mv, mode, qs_in, qs_out,
     their motion vectors (F, nby, nbx) and intra mode maps (n_gops, nby,
     nbx), each None when the stream has none -> (int16 coefficients, the
     re-coded mode maps or None).  The steps are floats, or per-frame
-    tensors when streams are stacked on the frame axis."""
+    tensors when streams are stacked on the frame axis.  On a card, MC +
+    intra streams without deblocking or threshold run the chains in one
+    hand-written kernel (``transcode_mc_intra``), equal to them bit for
+    bit."""
+    if mc_intra_applies(q.device, q.shape[-1], mv is not None, intra,
+                        deblock, thr_k, gop, gop_out):
+        return transcode_mc_intra(q, mv, mode, qs_in, qs_out, maxval, gop)
     if mv is None and not intra:
         return transcode_coeffs_ref(q, qs_in, qs_out, maxval, gop, gop_out,
                                     deblock, thr_k), None

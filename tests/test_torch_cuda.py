@@ -141,9 +141,117 @@ def test_mc_intra_stream_transcodes_on_the_card_as_on_the_cpu(cuda, mode):
         writer = V3CWriter()
         return writer.write(writer.encode(context))
 
-    before = tc.LAUNCHES
+    before, mc_intra = tc.LAUNCHES, tc.MC_INTRA_LAUNCHES
     assert run(cuda) == run(torch.device("cpu"))
-    assert tc.LAUNCHES == before  # these branches run the plain chains
+    # no transcode_gops launch; reencode runs the MC + intra kernel, requant
+    # rescales in the coefficient domain
+    assert tc.LAUNCHES == before
+    if mode == "reencode":
+        assert tc.MC_INTRA_LAUNCHES > mc_intra
+    else:
+        assert tc.MC_INTRA_LAUNCHES == mc_intra
+
+
+def _mc_intra_input(seed, f, nby, nbx, gop, qs_in, maxval):
+    """Coefficients of an MC + intra stream (I-frame DCs that decode inside
+    [0, maxval]), its motion vectors (every offset, so edge blocks reach
+    past the picture) and mode maps (both modes)."""
+    rng = np.random.default_rng(seed)
+    q = np.round(rng.laplace(scale=6.0, size=(f, nby, nbx, 16, 16)))
+    q[::gop, ..., 0, 0] = rng.integers(
+        0, int(maxval * 16 / qs_in), size=q[::gop, ..., 0, 0].shape)
+    mv = rng.integers(0, 49, size=(f, nby, nbx)).astype(np.int32)
+    imode = rng.integers(0, 2, size=(-(-f // gop), nby, nbx)).astype(np.uint8)
+    return (torch.from_numpy(q.astype(np.int16)), torch.from_numpy(mv),
+            torch.from_numpy(imode))
+
+
+def _assert_mc_intra_kernel_is_its_twin(cuda, q, mv, imode, qs_in, qs_out,
+                                        maxval, gop):
+    on = [x.to(cuda) for x in (q, mv, imode)]
+    steps = [s.to(cuda) if isinstance(s, torch.Tensor) else s
+             for s in (qs_in, qs_out)]
+    before = tc.MC_INTRA_LAUNCHES
+    got_q, got_mode = tc.transcode_mc_intra(*on, *steps, maxval, gop)
+    torch.cuda.synchronize()
+    assert tc.MC_INTRA_LAUNCHES == before + gop + 1
+    want_q, want_mode = tc.transcode_mc_intra_ref(*on, *steps, maxval, gop)
+    assert torch.equal(got_q, want_q)
+    assert torch.equal(got_mode, want_mode)
+    cpu_q, cpu_mode = tc.transcode_mc_intra_ref(q, mv, imode, qs_in, qs_out,
+                                                maxval, gop)
+    assert torch.equal(got_q.cpu(), cpu_q)
+    assert torch.equal(got_mode.cpu(), cpu_mode)
+    return got_mode
+
+
+@pytest.mark.parametrize("f,nby,nbx,gop,maxval", [
+    (4, 8, 8, 2, 1023.0),    # 10-bit 4:0:0
+    (4, 8, 8, 2, 255.0),     # 8-bit 4:2:0 luma
+    (4, 4, 4, 2, 255.0),     # and its chroma
+    (2, 32, 32, 2, 255.0),   # 512 x 512 chroma of a 1024 x 1024 atlas
+    (8, 6, 5, 4, 1023.0),    # GOP 4: both pairs of planes in turn
+    (5, 3, 7, 2, 1023.0),    # ragged F, and mosaics whose second resize
+    (7, 9, 5, 4, 255.0),     # products are rounded, not fused
+    (3, 1, 1, 2, 1023.0),    # one block: every gather clamped
+    (3, 2, 3, 1, 1023.0),    # GOP 1: I frames only
+])
+def test_mc_intra_kernel_equals_the_plain_chains(cuda, f, nby, nbx, gop,
+                                                 maxval):
+    qs_in, qs_out = _qs(22), _qs(42)
+    q, mv, imode = _mc_intra_input(f * nby + nbx, f, nby, nbx, gop, qs_in,
+                                   maxval)
+    mode = _assert_mc_intra_kernel_is_its_twin(cuda, q, mv, imode, qs_in,
+                                               qs_out, maxval, gop)
+    if nby * nbx >= 16:
+        assert 0 < int(mode.sum()) < mode.numel()  # both intra modes
+
+
+def test_mc_intra_kernel_stacked_streams_with_per_frame_steps(cuda):
+    # S = 4 streams of different QPs stacked on the frame axis, each padded
+    # to whole GOPs, as parallel/multistream.py:run_shard hands them over
+    s, fp, gop, nby, nbx = 4, 6, 2, 8, 8
+    q, mv, imode = _mc_intra_input(7, s * fp, nby, nbx, gop, _qs(16), 1023.0)
+    qs_in = torch.tensor([_qs(q) for q in (16, 18, 20, 22)]
+                         ).repeat_interleave(fp)
+    qs_out = torch.tensor([_qs(q) for q in (32, 30, 36, 42)]
+                          ).repeat_interleave(fp)
+    _assert_mc_intra_kernel_is_its_twin(cuda, q, mv, imode, qs_in, qs_out,
+                                        1023.0, gop)
+
+
+def test_mc_intra_kernel_on_encoder_streams(cuda):
+    # the coefficients, motion vectors and modes the port's encoder writes:
+    # 10-bit 4:0:0 geometry and 8-bit 4:2:0 attribute
+    from rabbit_transcoding_tpu_torch.testdata import (make_stream,
+                                                       stream_planes)
+    from rabbit_transcoding_tpu_torch.video import rbv
+
+    data = make_stream(4, 128, 128, motion=True, intra=True)
+    planes = stream_planes(data)
+    assert sorted(planes) == [("ATTRIBUTE", 0), ("ATTRIBUTE", 1),
+                              ("ATTRIBUTE", 2), ("GEOMETRY", 0)]
+    for (kind, _), pl in planes.items():
+        maxval = 1023.0 if kind == "GEOMETRY" else 255.0
+        _assert_mc_intra_kernel_is_its_twin(
+            cuda, pl.q, torch.from_numpy(pl.mv), torch.from_numpy(pl.mode),
+            rbv._f32(rbv.qstep_of(22)), rbv._f32(rbv.qstep_of(42)), maxval,
+            2)
+
+
+def test_mc_intra_kernel_rejects_bad_input(cuda):
+    q, mv, imode = (x.to(cuda) for x in _mc_intra_input(
+        1, 4, 2, 2, 2, _qs(22), 255.0))
+    with pytest.raises(ValueError):
+        tc.transcode_mc_intra(q, mv[:3], imode, 1.0, 2.0, 255.0, 2)
+    with pytest.raises(ValueError):
+        tc.transcode_mc_intra(q, mv, imode[:1], 1.0, 2.0, 255.0, 2)
+    with pytest.raises(ValueError):
+        tc.transcode_mc_intra(q, mv, imode, torch.ones(3, device=cuda), 2.0,
+                              255.0, 2)
+    with pytest.raises(TypeError):
+        tc.transcode_mc_intra(q.to(torch.int32), mv, imode, 1.0, 2.0, 255.0,
+                              2)
 
 
 def test_batched_kernel_equals_single_launches_and_plain_version(cuda):

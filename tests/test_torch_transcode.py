@@ -160,8 +160,9 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_kernel_dct_literals_are_the_package_matrix():
-    # the CUDA kernel carries D as hexadecimal float literals (its FMA
-    # immediates): they must be dct_matrix(16)'s float32 values, bit for bit
+    # the CUDA kernels carry D as hexadecimal float literals (their FMA
+    # immediates, in the header they share): they must be dct_matrix(16)'s
+    # float32 values, bit for bit
     import re
     from pathlib import Path
 
@@ -169,7 +170,7 @@ def test_kernel_dct_literals_are_the_package_matrix():
     from rabbit_transcoding_tpu_torch.ops.dct import dct_matrix
 
     src = (Path(tc.__file__).resolve().parents[1] / "csrc"
-           / "transcode_gops.cu").read_text()
+           / "block16.cuh").read_text()
     table = re.search(r"constexpr float kD\[kB \* kB\] = \{(.*?)\};", src,
                       re.S).group(1)
     lits = re.findall(r"-?0x[0-9a-f.]+p[-+]?\d+f", table)
