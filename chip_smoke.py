@@ -42,6 +42,11 @@ Phases, one result line each; any failure raises and the exit code is not 0:
    runs, 3 launches of the MC + intra kernel per plane and none of the
    fused one, every output sub-stream decoding, and the output held
    against a ``device=cpu`` run;
+6c. the grid geometry-smoothing kernel (``grid_smooth_kernel``) alone at
+   the decode cell's batch shape, 8 clouds of ~458,000 points at grid 8
+   and threshold 64: equal to its plain twin on the card, one launch, its
+   times by CUDA events beside the twin's, its share of the function's
+   bytes bound and of this design's (the grid's zeroing included);
 7. ``requant`` mode on both streams (the bench stream requantises drift-
    compensated, the MC + intra stream open-loop), timed and held against
    ``device=cpu`` runs in the same way;
@@ -234,6 +239,7 @@ import rabbit_transcoding_tpu_torch
 from rabbit_transcoding_tpu_torch import bench as bench_mod
 from rabbit_transcoding_tpu_torch import native, testdata
 from rabbit_transcoding_tpu_torch.ops import _build
+from rabbit_transcoding_tpu_torch.ops import smoothing as sm
 from rabbit_transcoding_tpu_torch.ops import transcode as tc
 from rabbit_transcoding_tpu_torch.apps import decode as decode_app
 from rabbit_transcoding_tpu_torch.apps import encode as encode_app
@@ -284,6 +290,10 @@ KERNEL_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_gops.cu"
 # replaces no TPU kernel: the plain chains of the MC + intra branch
 MC_INTRA_SOURCE = "rabbit_transcoding_tpu_torch/csrc/transcode_mc_intra.cu"
 REPLACES = "rabbit_transcoding_tpu/ops/pallas_transcode.py:86"
+# replaces no TPU kernel: the JAX package's grid_smooth is XLA code
+GRID_SOURCE = "rabbit_transcoding_tpu_torch/csrc/grid_smooth.cu"
+# the decode cell's batch of clouds: 8 frames of about this many points
+GRID_CLOUDS, GRID_POINTS = 8, 458_000
 # input QPs (geometry; attribute + 6) of the multi-stream phases' streams
 STREAM_QPS = (16, 18, 20, 22)
 # the reduced size of the CPU runs that the lossless, map-pair and ABR
@@ -578,6 +588,67 @@ def mc_intra_kernel_phase(data_mi: bytes, dev, card) -> dict:
     return row
 
 
+def grid_smooth_kernel_phase(dev, card) -> dict:
+    """6c. The grid geometry-smoothing kernel alone against its plain twin
+    at the decode cell's batch shape: ``GRID_CLOUDS`` noisy sphere surfaces
+    of about ``GRID_POINTS`` distinct points (a third of a point per
+    surface voxel), half of them eligible, grid 8 at 10 bits, threshold 64,
+    4 neighbours; times by CUDA events, and the share of the least time the
+    card could take (3.35 TB/s) to move the function's bytes: read the
+    points and the flags and write the positions and both masks once, 27
+    bytes a point.  ``design_bound_ms`` adds what this design moves besides:
+    the grid's zeroing (16 bytes a cell) and a second read of the points."""
+    rng = np.random.default_rng(22)
+    clouds = []
+    for _ in range(GRID_CLOUDS):
+        d = rng.normal(size=(GRID_POINTS, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        p = np.unique(np.round(512 + 330 * d + rng.normal(
+            scale=1.5, size=d.shape)).astype(np.int32), axis=0)
+        rng.shuffle(p)
+        clouds.append(p)
+    counts = [len(p) for p in clouds]
+    p = torch.from_numpy(np.concatenate(clouds)).to(dev)
+    elig = torch.from_numpy(rng.random(len(p)) < 0.5).to(dev)
+    args = (p, elig, counts, 64.0, 4.0, 8, 128)
+    sm.GRID_LAUNCHES = 0
+    got = sm.grid_smooth_kernel(*args)
+    torch.cuda.synchronize()
+    launches = sm.GRID_LAUNCHES
+    valid = torch.ones(len(p), dtype=torch.bool, device=dev)
+    group = sm.cloud_index(counts, dev)
+
+    def plain():
+        return sm.grid_smooth(p, valid, 64.0, 4.0, elig, 8, 128, group,
+                              GRID_CLOUDS)
+
+    want = plain()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    k_ms, k_dev = kernel_times(lambda: sm.grid_smooth_kernel(*args))
+    p_ms = median_ms(plain, n=5)
+    nbytes = len(p) * (12 + 1 + 12 + 2)
+    design_bytes = nbytes + GRID_CLOUDS * 128 ** 3 * 16 + len(p) * 12
+    bound = nbytes / tc.H100_BYTES_PER_S * 1e3
+    design_bound = design_bytes / tc.H100_BYTES_PER_S * 1e3
+    phase("grid_smooth_kernel", clouds=GRID_CLOUDS, points=len(p),
+          moved=int(got[2].sum()), dropped=int((~got[1]).sum()),
+          equal=equal, launches=launches, kernel_ms=f"{k_ms:.4f}",
+          device_ms=f"{k_dev:.4f}", plain_ms=f"{p_ms:.4f}", bytes=nbytes,
+          bound_ms=f"{bound:.4f}", bound_by="bytes",
+          bound_share=f"{bound / k_ms:.4f}",
+          device_bound_share=f"{bound / k_dev:.4f}",
+          plain_bound_share=f"{bound / p_ms:.4f}", design_bytes=design_bytes,
+          design_bound_ms=f"{design_bound:.4f}",
+          design_device_share=f"{design_bound / k_dev:.4f}",
+          card=repr(card))
+    check(equal, "the grid kernel differs from its twin")
+    check(launches == 1, f"{launches} grid kernel calls, want 1")
+    return {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "bound_share": bound / k_ms, "device_ms": k_dev,
+            "design_bound_ms": design_bound, "launches_per_batch": launches}
+
+
 def full_and_small_phase(name: str, full: bytes, small: bytes, dev,
                          params, small_params, card, **fields) -> None:
     """11. ``full`` timed on the card; ``small`` on the card held against
@@ -673,6 +744,13 @@ def stream_app_phase(streams: list[bytes], dev, card) -> tuple:
     return inputs, plain, params, work
 
 
+def grid_batches(clouds: list) -> int:
+    """The grid kernel's calls that the decode of ``clouds`` should make:
+    one a batch of ``_BATCH_CLOUDS`` non-empty clouds."""
+    frames = sum(ps.point_count > 0 for ps in clouds)
+    return -(-frames // sm._BATCH_CLOUDS)
+
+
 def decode_clouds(data: bytes, device) -> tuple[list, Decoder, float]:
     """The first GOF of ``data`` through ``Decoder(device=device)`` ->
     (clouds, the decoder, wall seconds), the device synchronised."""
@@ -734,10 +812,12 @@ def decode_phase(data: bytes, data_mi: bytes, dev, card) -> list:
     """14. The decode of the patch-carrying GOF on the card -> its clouds."""
     runs = []
     for i in range(4):      # one warm-up, then 3 timed runs
+        sm.GRID_LAUNCHES = 0
         clouds, decoder, wall = decode_clouds(data, dev)
         if i:
-            runs.append((wall, clouds, decoder))
+            runs.append((wall, clouds, decoder, sm.GRID_LAUNCHES))
     walls = [r[0] for r in runs]
+    launches = [r[3] for r in runs]
     wall = statistics.median(walls)
     clouds, decoder = runs[-1][1], runs[-1][2]
     equal = clouds_equal(runs[-2][1], clouds)
@@ -746,7 +826,7 @@ def decode_phase(data: bytes, data_mi: bytes, dev, card) -> list:
     phase("decode", runs=len(walls), wall_s=repr(walls),
           median_s=f"{wall:.4f}", frames_per_s=f"{FRAMES / wall:.3f}",
           points_per_frame=repr(counts), run_to_run_equal=equal,
-          stages_ms=json.dumps({k: round(v, 3)
+          grid_launches=repr(launches), stages_ms=json.dumps({k: round(v, 3)
                                 for k, v in decoder.timer.stages.items()}),
           checksums=repr(sums), card=repr(card))
     check(len(clouds) == FRAMES and min(counts) > 50_000,
@@ -755,6 +835,9 @@ def decode_phase(data: bytes, data_mi: bytes, dev, card) -> list:
               and ps.positions.min() >= 0 and ps.positions.max() < 1024
               for ps in clouds), "decode: clouds malformed")
     check(equal, "decode: two runs on the card give different clouds")
+    check(launches == [grid_batches(clouds)] * len(runs),
+          f"decode: grid kernel calls {launches}, want "
+          f"{grid_batches(clouds)} a run")
     decode_clouds(data_mi, dev)       # warm-up
     clouds_mi, _, wall_mi = decode_clouds(data_mi, dev)
     phase("decode_mc_intra", wall_s=f"{wall_mi:.4f}",
@@ -788,15 +871,21 @@ def decode_map_pair_phase(dev, card) -> None:
     full = make_stream(FRAMES, WIDTH, HEIGHT, device=dev, **kw)
     build_s = time.perf_counter() - t0
     decode_clouds(full, dev)          # warm-up
+    sm.GRID_LAUNCHES = 0
     clouds, decoder, wall = decode_clouds(full, dev)
+    launches = sm.GRID_LAUNCHES
     counts = [ps.point_count for ps in clouds]
     phase("decode_map_pair", wall_s=f"{wall:.4f}",
           frames_per_s=f"{FRAMES / wall:.3f}", points=sum(counts),
+          grid_launches=launches,
           stages_ms=json.dumps({k: round(v, 3)
                                 for k, v in decoder.timer.stages.items()}),
           build_s=f"{build_s:.3f}", card=repr(card))
     check(len(clouds) == FRAMES and min(counts) > 100_000,
           f"decode_map_pair: points per frame {counts}")
+    check(launches == grid_batches(clouds),
+          f"decode_map_pair: {launches} grid kernel calls, want "
+          f"{grid_batches(clouds)}")
 
 
 def _position_keys(ps) -> np.ndarray:
@@ -2447,6 +2536,7 @@ def main() -> int:
           bytes=len(data_mi), seconds=f"{time.perf_counter() - t0:.3f}")
     units_mi = reader.read(data_mi)[0]
     mc_intra_row = mc_intra_kernel_phase(data_mi, dev, card)
+    grid_row = grid_smooth_kernel_phase(dev, card)
     cpu = torch.device("cpu")
     requant = TranscoderParameters(geometryQP=GEO_QP, attributeQP=ATTR_QP,
                                    mode="requant")
@@ -2550,6 +2640,9 @@ def main() -> int:
     }, {
         "name": "transcode_mc_intra", "route": "cuda",
         "source": MC_INTRA_SOURCE, "replaces": None, **mc_intra_row,
+    }, {
+        "name": "grid_smooth", "route": "cuda", "source": GRID_SOURCE,
+        "replaces": None, **grid_row,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

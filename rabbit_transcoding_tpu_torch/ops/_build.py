@@ -130,7 +130,7 @@ def _load() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a kernel library on ``lib`` (also used
     for a library built from another version of the sources, which may
-    lack ``rbv_transcode_mc_intra``)."""
+    lack ``rbv_transcode_mc_intra`` or ``rbv_grid_smooth``)."""
     lib.rbv_transcode_gops.restype = ctypes.c_int
     lib.rbv_transcode_gops.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # in, out, dmat
@@ -159,6 +159,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             i32, i32,                 # h_first, fused
             ptr, ptr, f32, f32,       # qs_in_f, qs_out_f, qs_in, qs_out
             f32, f32, f32,            # maxval, dz_intra, dz_inter
+            i32, ptr,                 # device, stream
+        ]
+    if hasattr(lib, "rbv_grid_smooth"):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.rbv_grid_smooth.restype = i32
+        lib.rbv_grid_smooth.argtypes = [
+            ptr, ptr, ptr,            # points, eligible, grid
+            ptr, ptr, ptr,            # out, keep, move
+            ptr, i32, ctypes.c_int64,  # starts (host), groups, n
+            i32, i32, f32, f32,       # grid_size, grid_dim, threshold, min_nb
             i32, ptr,                 # device, stream
         ]
     lib.rbv_cuda_error_string.restype = ctypes.c_char_p

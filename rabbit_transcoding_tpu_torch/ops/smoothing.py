@@ -2,7 +2,7 @@
 
 Port of ``rabbit_transcoding_tpu/ops/smoothing.py``: the grid filters
 ``grid_smooth``, ``color_grid_smooth``, ``color_grid_smooth_gated`` with the
-host wrappers ``smooth_cloud`` / ``smooth_colors``, the full-KNN geometry
+host wrapper ``smooth_colors``, the full-KNN geometry
 smoothing ``knn_smooth`` (its KNN on the device, ``ops/knn.py``) and the
 encoder's colour pre-smoothing ``presmooth_colors`` (host numpy over a
 cKDTree, as in the reference).  One scatter-add builds
@@ -14,7 +14,13 @@ changes without them, so the port runs the real points only.  It can also
 run several clouds in one call: ``group`` names each point's cloud, and
 every cloud gets its own grid (its cells follow the previous cloud's in one
 accumulator), so a GOF's frames cost a few hundred launches per batch
-instead of per frame.  The host wrappers batch ``_BATCH_CLOUDS`` clouds.
+instead of per frame.  The colour wrappers and the decoder's geometry pass
+(``codec/postprocess.py``) batch ``_BATCH_CLOUDS`` clouds.
+
+The geometry filter has a hand-written CUDA kernel (``csrc/grid_smooth.cu``,
+``grid_smooth_kernel``), equal to ``grid_smooth`` bit for bit; ``smooth_grid``
+runs it for a CUDA tensor and ``grid_smooth`` for a CPU one.  The colour
+filters stay plain PyTorch.
 
 Order of the scatter-add: the geometry sums and the colour sums add
 integers below 2^24 and are exact in any order.  The gated colour filter
@@ -27,11 +33,14 @@ points in that order, run to run the same).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from ..device import resolve
 from ..utils import timing
+from . import _build
 from .rbv_tools import fma, scalar
 
 _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -55,8 +64,8 @@ def _scatter_sum(flat: torch.Tensor, vals: torch.Tensor,
     return torch.stack(cols, dim=1)
 
 
-# clouds per call of the host wrappers: bounds the accumulators (a 128^3
-# grid of 6 floats is 50 MB per cloud)
+# clouds per call of the host wrappers and of the grid kernel: bounds the
+# accumulators (a 128^3 grid of 6 floats is 50 MB per cloud)
 _BATCH_CLOUDS = 8
 
 
@@ -125,6 +134,107 @@ def grid_smooth(
         out = torch.where(move[:, None],
                           torch.round(centroid).to(torch.int32), points)
     return out, keep, move
+
+
+# calls of the grid kernel (one a batch of clouds), read by callers that
+# must show the main path went through it
+GRID_LAUNCHES = 0
+_launch_lock = threading.Lock()
+
+
+def grid_smooth_kernel(
+    points: torch.Tensor,        # (N, 3) int32, on a card
+    eligible: torch.Tensor,      # (N,) bool: only these may MOVE
+    counts: list[int],           # the points of each cloud, in order
+    threshold: float,
+    min_neighbors: float,
+    grid_size: int = 8,
+    grid_dim: int = 128,
+):
+    """``grid_smooth`` of every point (all valid) of ``len(counts)`` clouds
+    stacked in ``points``, each in its own grid, by the hand-written kernel
+    (``csrc/grid_smooth.cu``): a memset and two launches on the current
+    stream, no host synchronisation.  -> (points (N, 3) int32, keep (N,)
+    bool, moved (N,) bool), bit for bit ``grid_smooth``'s while every
+    27-cell sum stays below 2^24.  Raises on a tensor the kernel does not
+    take."""
+    if points.device.type != "cuda" or eligible.device != points.device:
+        raise ValueError(f"the grid kernel takes CUDA tensors on one device, "
+                         f"got {points.device} and {eligible.device}")
+    if points.dtype != torch.int32 or eligible.dtype != torch.bool:
+        raise TypeError(f"the grid kernel takes int32 points and bool "
+                        f"flags, got {points.dtype} and {eligible.dtype}")
+    n = points.shape[0]
+    if (tuple(points.shape) != (n, 3) or tuple(eligible.shape) != (n,)
+            or not points.is_contiguous() or not eligible.is_contiguous()):
+        raise ValueError(f"the grid kernel takes contiguous (N, 3) points and "
+                         f"(N,) flags, got {tuple(points.shape)} and "
+                         f"{tuple(eligible.shape)}")
+    # csrc/grid_smooth.cu's kMaxClouds is _BATCH_CLOUDS
+    if not 1 <= len(counts) <= _BATCH_CLOUDS or sum(counts) != n:
+        raise ValueError(f"{len(counts)} clouds of {sum(counts)} points for "
+                         f"{n} points (1 to {_BATCH_CLOUDS} clouds a call)")
+    dev = points.device
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    grid = torch.empty(len(counts) * grid_dim ** 3 * 4, dtype=torch.int32,
+                       device=dev)
+    out = torch.empty_like(points)
+    keep = torch.empty(n, dtype=torch.bool, device=dev)
+    move = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _build.library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = lib.rbv_grid_smooth(
+        points.data_ptr(), eligible.data_ptr(), grid.data_ptr(),
+        out.data_ptr(), keep.data_ptr(), move.data_ptr(), starts.ctypes.data,
+        len(counts), n, grid_size, grid_dim, threshold, min_neighbors, index,
+        torch.cuda.current_stream(index).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"grid_smooth launch failed: CUDA error {err} "
+            f"({lib.rbv_cuda_error_string(err).decode()})")
+    global GRID_LAUNCHES
+    with _launch_lock:
+        GRID_LAUNCHES += 1
+    sp = timing.current()
+    if sp is not None and sp.name == "smooth_grid":
+        sp.note("kernel", "grid_smooth")
+    return out, keep, move
+
+
+def cloud_index(counts: list[int], device) -> torch.Tensor:
+    """(N,) int64: the index of each point's cloud, ``counts[i]`` points of
+    cloud i after one another (filled slice by slice: nothing is copied
+    from the host)."""
+    group = torch.empty(sum(counts), dtype=torch.long, device=device)
+    start = 0
+    for i, n in enumerate(counts):
+        group[start:start + n] = i
+        start += n
+    return group
+
+
+def smooth_grid(
+    points: torch.Tensor,        # (N, 3) int32
+    eligible: torch.Tensor,      # (N,) bool
+    counts: list[int],           # the points of each cloud, in order
+    threshold: float,
+    min_neighbors: float,
+    grid_size: int = 8,
+    grid_dim: int = 128,
+):
+    """The grid filter of the clouds stacked in ``points`` (every point
+    valid), each in its own grid -> (points (N, 3) int32, keep (N,) bool,
+    moved (N,) bool): for a CUDA tensor the kernel (in a span
+    ``smooth_grid`` that notes ``kernel``), for a CPU tensor
+    ``grid_smooth``."""
+    if points.device.type == "cpu":
+        valid = torch.ones(len(points), dtype=torch.bool)
+        return grid_smooth(points, valid, threshold, min_neighbors, eligible,
+                           grid_size, grid_dim, cloud_index(counts, "cpu"),
+                           len(counts))
+    with timing.span("smooth_grid"):
+        return grid_smooth_kernel(points, eligible, counts, threshold,
+                                  min_neighbors, grid_size, grid_dim)
 
 
 def _sum_squares(diff: torch.Tensor) -> torch.Tensor:
@@ -272,13 +382,6 @@ def _stacked(arrays: list, dtype, device) -> torch.Tensor:
         np.concatenate(arrays), dtype)).to(device)
 
 
-def _groups(counts: list[int], device) -> torch.Tensor:
-    """(N,) the index of each point's cloud within its batch."""
-    return torch.repeat_interleave(
-        torch.arange(len(counts), device=device),
-        torch.tensor(counts, device=device))
-
-
 def smooth_colors_many(
     clouds: list[tuple],
     threshold: float = 10.0,
@@ -309,7 +412,7 @@ def smooth_colors_many(
             pts = _stacked([clouds[i][0] for i in batch], np.int32, device)
             cols = _stacked([clouds[i][1] for i in batch], np.uint8, device)
             valid = torch.ones(len(pts), dtype=torch.bool, device=device)
-            group = _groups(counts, device)
+            group = cloud_index(counts, device)
             if plain:
                 new, moved = color_grid_smooth(
                     pts, cols, valid, thr, gsize, gdim, group, len(batch))
@@ -351,66 +454,6 @@ def smooth_colors(
     return smooth_colors_many(
         [(positions, colors, partition, eligible)], threshold, grid_size,
         coord_bits, threshold_variation, threshold_difference, device)[0]
-
-
-def smooth_clouds(
-    clouds: list[tuple],
-    threshold: float = 64.0,
-    min_neighbors: int = 4,
-    grid_size: int = 8,
-    coord_bits: int = 10,
-    device: torch.device | str = "cuda",
-) -> list[tuple[np.ndarray, np.ndarray, int]]:
-    """Grid geometry smoothing of several clouds, each a tuple (positions,
-    eligible or None) -> per cloud (positions, keep mask, moved count), as
-    ``smooth_cloud`` gives them one by one; the clouds run batched."""
-    device = resolve(device)
-    out: list = [None] * len(clouds)
-    members = []
-    for i, (positions, _) in enumerate(clouds):
-        if len(positions) == 0:
-            out[i] = (positions, np.zeros(0, bool), 0)
-        else:
-            members.append(i)
-    grid_dim = max(2, (1 << coord_bits) // grid_size)
-    for batch in _batches(members):
-        counts = [len(clouds[i][0]) for i in batch]
-        pts = _stacked([clouds[i][0] for i in batch], np.int32, device)
-        elig = _stacked([np.ones(n, bool) if clouds[i][1] is None
-                         else clouds[i][1] for i, n in zip(batch, counts)],
-                        bool, device)
-        valid = torch.ones(len(pts), dtype=torch.bool, device=device)
-        group = _groups(counts, device)
-        new, keep, moved = grid_smooth(
-            pts, valid, float(np.float32(threshold)),
-            float(np.float32(min_neighbors)), elig, grid_size, grid_dim,
-            group, len(batch))
-        # the moves come back to the host
-        with timing.span("smooth_filter"):
-            moved = torch.bincount(group[moved], minlength=len(batch))
-            cuts = np.cumsum(counts)[:-1]
-            for i, p, k, m in zip(batch, np.split(new.cpu().numpy(), cuts),
-                                  np.split(keep.cpu().numpy(), cuts),
-                                  moved.cpu().tolist()):
-                out[i] = (p, k, m)
-    return out
-
-
-def smooth_cloud(
-    positions: np.ndarray,
-    threshold: float = 64.0,
-    min_neighbors: int = 4,
-    grid_size: int = 8,
-    coord_bits: int = 10,
-    eligible: np.ndarray | None = None,
-    device: torch.device | str = "cuda",
-) -> tuple[np.ndarray, np.ndarray, int]:
-    """Host wrapper for grid geometry smoothing.
-    eligible: optional (N,) bool: only these points may move (the patch
-    boundary points); None = all movable.
-    Returns (positions, keep mask over input order, moved count)."""
-    return smooth_clouds([(positions, eligible)], threshold, min_neighbors,
-                         grid_size, coord_bits, device)[0]
 
 
 def knn_smooth(

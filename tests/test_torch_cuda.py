@@ -606,6 +606,111 @@ def test_smoothing_grids_on_the_card_equal_the_cpu(cuda, n, radius):
     assert not (differ & ~elig).any()
 
 
+def _faces_cloud(seed=0):
+    """Points on and beyond the grid's faces (cells clamp there)."""
+    rng = np.random.default_rng(seed)
+    plane = rng.integers(0, 1024, (30_000, 3))
+    plane[:10_000, 0] = 0
+    plane[10_000:20_000, 1] = 1023
+    plane[20_000:, 2] = rng.choice([-5, -1, 1023, 1030], 10_000)
+    return np.unique(plane, axis=0)
+
+
+def _dense_cloud():
+    """Every voxel of a 24^3 cube in the grid's far corner: 27 full cells of
+    512 points around a point, sums of x up to ~1.39e7, near 2^24."""
+    axis = np.arange(992, 1016)
+    return np.stack(np.meshgrid(axis, axis, axis, indexing="ij"),
+                    -1).reshape(-1, 3)
+
+
+def _grid_case(name):
+    if name in ("20k", "400k"):
+        n, radius = (20_000, 75) if name == "20k" else (400_000, 330)
+        return [_smoothing_cloud(n, radius)[0].numpy()]
+    if name == "2_clouds":
+        return [_smoothing_cloud(20_000, 75, s)[0].numpy() for s in (1, 2)]
+    if name == "8_clouds":
+        return [_smoothing_cloud(400_000, 330, s)[0].numpy()
+                for s in range(8)]
+    return [_faces_cloud()] if name == "faces" else [_dense_cloud()]
+
+
+@pytest.mark.parametrize("name", ["20k", "400k", "2_clouds", "8_clouds",
+                                  "faces", "dense"])
+@pytest.mark.parametrize("threshold,min_neighbors", [(16.0, 4.0),
+                                                     (2.0, 170.0)])
+def test_grid_kernel_equals_the_plain_filter(cuda, name, threshold,
+                                             min_neighbors):
+    from rabbit_transcoding_tpu_torch.ops import smoothing as sm
+
+    clouds = _grid_case(name)
+    counts = [len(c) for c in clouds]
+    rng = np.random.default_rng(len(counts))
+    p = torch.from_numpy(np.concatenate(clouds).astype(np.int32))
+    elig = torch.from_numpy(rng.random(len(p)) < 0.5)
+    before = sm.GRID_LAUNCHES
+    got = sm.grid_smooth_kernel(p.to(cuda), elig.to(cuda), counts, threshold,
+                                min_neighbors, 8, 128)
+    torch.cuda.synchronize()
+    assert sm.GRID_LAUNCHES == before + 1
+    want = sm.grid_smooth(p, torch.ones(len(p), dtype=torch.bool), threshold,
+                          min_neighbors, elig, 8, 128,
+                          sm.cloud_index(counts, "cpu"), len(counts))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    if name == "dense":
+        # the largest 27-cell sum of x lies just below 2^24
+        cell = torch.div(p, 8, rounding_mode="floor").long()
+        acc = torch.zeros(128 ** 3, dtype=torch.long).index_add_(
+            0, (cell[:, 0] * 128 + cell[:, 1]) * 128 + cell[:, 2],
+            p[:, 0].long())
+        total = sum(acc[(((cell[:, 0] + dx).clamp(0, 127) * 128
+                          + (cell[:, 1] + dy).clamp(0, 127)) * 128
+                         + (cell[:, 2] + dz).clamp(0, 127))]
+                    for dx, dy, dz in sm._OFFSETS)
+        assert 0.8 * 2 ** 24 < int(total.max()) < 2 ** 24
+    # the filter moves points, and the density test drops some
+    moved, keep = want[2], want[1]
+    assert moved.any() or name == "faces"
+    assert not keep.all() or name == "dense" or min_neighbors == 4.0
+    # the twin on the card too, and the dispatch
+    on_card = sm.grid_smooth(p.to(cuda), torch.ones(len(p), dtype=torch.bool,
+                                                    device=cuda),
+                             threshold, min_neighbors, elig.to(cuda), 8, 128,
+                             sm.cloud_index(counts, cuda), len(counts))
+    for g, w in zip(on_card, want):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(sm.smooth_grid(p.to(cuda), elig.to(cuda), counts,
+                                   threshold, min_neighbors, 8, 128), want):
+        assert torch.equal(g.cpu(), w)
+    assert sm.GRID_LAUNCHES == before + 2
+
+
+def test_grid_kernel_rejects_bad_input(cuda):
+    from rabbit_transcoding_tpu_torch.ops import smoothing as sm
+
+    p = torch.zeros((6, 3), dtype=torch.int32, device=cuda)
+    e = torch.ones(6, dtype=torch.bool, device=cuda)
+    args = (4.0, 4.0, 8, 128)
+    with pytest.raises(TypeError):
+        sm.grid_smooth_kernel(p.long(), e, [6], *args)
+    with pytest.raises(TypeError):
+        sm.grid_smooth_kernel(p, e.to(torch.uint8), [6], *args)
+    with pytest.raises(ValueError):
+        sm.grid_smooth_kernel(p.cpu(), e.cpu(), [6], *args)
+    with pytest.raises(ValueError):
+        sm.grid_smooth_kernel(p, e.cpu(), [6], *args)
+    with pytest.raises(ValueError):
+        sm.grid_smooth_kernel(torch.zeros((3, 6), dtype=torch.int32,
+                                          device=cuda).t(), e, [6], *args)
+    with pytest.raises(ValueError):
+        sm.grid_smooth_kernel(p, e, [2, 3], *args)
+    with pytest.raises(ValueError):
+        sm.grid_smooth_kernel(p, e, [1] * 6 + [0] * (sm._BATCH_CLOUDS - 5),
+                              *args)
+
+
 def test_scatter_sum_on_the_card_adds_in_point_order(cuda):
     from rabbit_transcoding_tpu_torch.ops import smoothing as sm
 

@@ -15,6 +15,7 @@ from benchmark.program_spans import intersect, length, union
 from benchmark.reference import decode as ref_decode
 from rabbit_transcoding_tpu_torch.bitstream import V3CReader
 from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
+from rabbit_transcoding_tpu_torch.ops import smoothing as sm
 from rabbit_transcoding_tpu_torch.testdata import make_stream
 from rabbit_transcoding_tpu_torch.transcoder import (
     Transcoder, TranscoderParameters)
@@ -49,10 +50,10 @@ def stream() -> bytes:
                        planes=gen.planes(2147483659, 4, 128, 128, CPU))
 
 
-def _profiled_decode(data: bytes):
+def _profiled_decode(data: bytes, device="cpu"):
     reader = V3CReader()
     context = reader.decode(reader.read(data)[0])
-    decoder = Decoder(device="cpu")
+    decoder = Decoder(device=device)
     with profile(activities=[ProfilerActivity.CPU]):
         clouds = decoder.decode(context)
     return clouds, list(timing.RECORDER.spans)
@@ -84,11 +85,32 @@ def test_the_stage_counts_are_the_clouds_sizes(stream):
         "points": sum(ps.point_count for ps in clouds),
         "recolored": want.recolored}
     assert want.moved > 0
-    # the smoothing stage's children: the grid, the filter, the dedup
+    # the smoothing stage's children: per batch of clouds one grid, the
+    # filter (the plain grid's own and the attribute gather) and one dedup
     stage = by_name["smoothPointCloudPostprocess"]
     kids = Counter(s.name for s in spans if s.parent == stage.id)
+    assert 0 < len(clouds) <= sm._BATCH_CLOUDS
     assert kids["smooth_grid"] == 1 and kids["smooth_filter"] >= 2
-    assert kids["dedup"] == sum(ps.point_count > 0 for ps in clouds)
+    assert kids["dedup"] == 1
+
+
+@pytest.mark.cuda
+def test_on_a_card_the_grid_filter_is_the_kernel(stream):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = sm.GRID_LAUNCHES
+    clouds, spans = _profiled_decode(stream, "cuda")
+    stage = next(s for s in spans if s.name == "smoothPointCloudPostprocess")
+    grids = [s for s in spans if s.name == "smooth_grid"]
+    assert [s.parent for s in grids] == [stage.id]
+    assert [s.counts for s in grids] == [{"kernel": "grid_smooth"}]
+    assert sm.GRID_LAUNCHES == before + 1
+    want = ref_decode.decode(stream, CPU)
+    assert stage.counts == {"points": want.points, "moved": want.moved}
+    assert len(clouds) == len(want.clouds)
+    for got, ref in zip(clouds, want.clouds):
+        assert sorted(map(tuple, got.positions)) == sorted(
+            map(tuple, ref.positions))
 
 
 def test_rbv_decode_records_each_planes_entropy_and_submit(stream):

@@ -369,12 +369,13 @@ def test_scatter_sum_adds_in_point_order():
 @pytest.mark.parametrize("coord_bits,grid_size", [(10, 8), (10, 2), (11, 4)])
 def test_host_wrappers_equal(coord_bits, grid_size):
     p, col, part, elig = _cloud(3, n=8000)
+    grid_dim = max(2, (1 << coord_bits) // grid_size)
     want = ref_sm.smooth_cloud(p, 2.0, 6, grid_size, coord_bits, elig)
-    got = sm.smooth_cloud(p, 2.0, 6, grid_size, coord_bits, elig,
-                          device="cpu")
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
-    assert got[2] == want[2] > 0
+    got = sm.smooth_grid(_t(p), _t(elig), [len(p)], 2.0, 6.0, grid_size,
+                         grid_dim)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert int(got[2].sum()) == want[2] > 0
     for partition in (None, part):
         want = ref_sm.smooth_colors(p, col, 10.0, grid_size, coord_bits,
                                     partition, elig, 40.0, 30.0)
@@ -382,7 +383,8 @@ def test_host_wrappers_equal(coord_bits, grid_size):
                                partition, elig, 40.0, 30.0, device="cpu")
         np.testing.assert_array_equal(got[0], want[0])
         assert got[1] == want[1]
-    assert sm.smooth_cloud(p[:0], device="cpu")[2] == 0
+    assert not sm.smooth_grid(_t(p[:0]), _t(elig[:0]), [0], 2.0, 6.0,
+                              grid_size, grid_dim)[2].any()
     assert sm.smooth_colors(p[:0], col[:0], device="cpu")[1] == 0
 
 
@@ -395,14 +397,16 @@ def test_batched_clouds_equal_one_by_one(monkeypatch):
               for s in range(4)]
     empty = tuple(a[:0] for a in clouds[0])
     clouds.insert(2, empty)
-    many = sm.smooth_clouds([(p, e) for p, _, _, e in clouds], 2.0, 20, 8,
-                            10, device="cpu")
-    for (p, _, _, e), got in zip(clouds, many):
-        want = sm.smooth_cloud(p, 2.0, 20, 8, 10, e, device="cpu")
-        np.testing.assert_array_equal(got[0], want[0])
-        np.testing.assert_array_equal(got[1], want[1])
-        assert got[2] == want[2]
-    assert sum(m for _, _, m in many) > 0
+    counts = [len(p) for p, _, _, _ in clouds]
+    many = sm.smooth_grid(_t(np.concatenate([c[0] for c in clouds])),
+                          _t(np.concatenate([c[3] for c in clouds])), counts,
+                          2.0, 20.0, 8, 128)
+    for (p, _, _, e), got in zip(
+            clouds, zip(*(torch.split(t, counts) for t in many))):
+        want = sm.smooth_grid(_t(p), _t(e), [len(p)], 2.0, 20.0, 8, 128)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert many[2].any()
     for gated in (True, False):
         many = sm.smooth_colors_many(
             [(p, c, pt if gated else None, e) for p, c, pt, e in clouds],

@@ -48,10 +48,11 @@ from rabbit_transcoding_tpu_torch.codec.reconstruct import (
     ReconstructionEngine,
 )
 from rabbit_transcoding_tpu_torch.decoder.decoder import Decoder
-from rabbit_transcoding_tpu_torch.ops.smoothing import (
-    smooth_cloud,
-    smooth_colors,
+from rabbit_transcoding_tpu_torch.bitstream.sei import SeiGeometrySmoothing
+from rabbit_transcoding_tpu_torch.codec.postprocess import (
+    apply_geometry_smoothing,
 )
+from rabbit_transcoding_tpu_torch.ops.smoothing import smooth_colors
 from rabbit_transcoding_tpu_torch.utils import tracing
 
 from test_e2e_codec import make_sphere_cloud
@@ -405,7 +406,9 @@ def test_entry_points_pick_cuda_or_raise(monkeypatch, card):
         return
     for make in (Transcoder, MultiStreamTranscoder, Decoder,
                  ReconstructionEngine,
-                 lambda: smooth_cloud(np.zeros((1, 3), np.int32)),
+                 lambda: apply_geometry_smoothing(
+                     [PointSet(positions=np.zeros((1, 3), np.int32))],
+                     SeiGeometrySmoothing(gs_smoothing_method_type=1)),
                  lambda: smooth_colors(np.zeros((1, 3), np.int32),
                                        np.zeros((1, 3), np.uint8)),
                  lambda: ms.transcode_payloads([], 30),
